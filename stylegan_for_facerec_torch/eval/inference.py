@@ -1,0 +1,46 @@
+"""Iterative ReStyle inversion (``run_on_batch``) and ``tensor2im``.
+
+Public layout is NHWC, as in the JAX package: images in and out are
+(B, H, W, 3) in [-1, 1]."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.psp import PSp
+from ..ops.image import resize_bilinear
+
+
+@torch.inference_mode()
+def run_on_batch(model: PSp, inputs: torch.Tensor, avg_image: torch.Tensor,
+                 n_iters: int, resize_outputs: bool = True):
+    """inputs: (B, H, W, 3) on the model's device; avg_image: (H, W, 3).
+    Runs ``n_iters`` refinement iterations with const noise and returns
+    (outputs per iteration (iters, B, H', W', 3), latents per iteration
+    (iters, B, n_styles, 512))."""
+    if model.training:
+        raise ValueError("run_on_batch needs the model in eval mode "
+                         "(BatchNorm running statistics)")
+    x = inputs.permute(0, 3, 1, 2)
+    h, w = x.shape[-2:]
+    cond = avg_image.permute(2, 0, 1)[None].to(x.dtype).expand_as(x)
+    latent = None
+    outs, lats = [], []
+    for _ in range(n_iters):
+        y_hat, latent = model(torch.cat([x, cond], dim=1), latent,
+                              resize=resize_outputs, randomize_noise=False,
+                              return_latents=True)
+        outs.append(y_hat.permute(0, 2, 3, 1))
+        lats.append(latent)
+        # resize back to the input size for the next conditioning
+        cond = resize_bilinear(y_hat, h, w)
+    return torch.stack(outs), torch.stack(lats)
+
+
+def tensor2im(x) -> np.ndarray:
+    """(H, W, 3) in [-1, 1] -> uint8 image."""
+    arr = x.detach().float().cpu().numpy() if torch.is_tensor(x) \
+        else np.asarray(x)
+    arr = np.clip((arr + 1) / 2, 0, 1) * 255
+    return arr.astype(np.uint8)

@@ -1,0 +1,147 @@
+"""ReStyle pSp inversion model (NCHW): IR-SE encoder with map2style heads,
+the residual latent step, and the StyleGAN2-ADA generator."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..nn.initializers import (init_conv_torch_default_, init_conv_xavier_,
+                               init_weights)
+from ..utils.device import resolve_device
+from .irse import BottleneckIR, get_blocks
+from .stylegan2 import EqualLinear
+from .stylegan2_ada import Generator
+
+
+class GradualStyleBlock(nn.Module):
+    """map2style head: log2(spatial) stride-2 convs with LeakyReLU(0.01)
+    down to 1x1, then an EqualLinear."""
+
+    def __init__(self, in_c: int, out_c: int, spatial: int):
+        super().__init__()
+        self.out_c = out_c
+        self.spatial = spatial
+        num_pools = int(np.log2(spatial))
+        convs = [nn.Conv2d(in_c, out_c, 3, stride=2, padding=1),
+                 nn.LeakyReLU()]
+        for _ in range(num_pools - 1):
+            convs += [nn.Conv2d(out_c, out_c, 3, stride=2, padding=1),
+                      nn.LeakyReLU()]
+        self.convs = nn.Sequential(*convs)
+        self.linear = EqualLinear(out_c, out_c, lr_mul=1)
+
+    def init_weights_(self, generator: torch.Generator):
+        for m in self.convs:
+            if isinstance(m, nn.Conv2d):
+                init_conv_torch_default_(m, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.convs(x)
+        if x.shape[2] != 1 or x.shape[3] != 1:
+            raise ValueError(
+                f"GradualStyleBlock(spatial={self.spatial}) ended at "
+                f"{x.shape[2]}x{x.shape[3]}, not 1x1: the encoder's "
+                f"style_spatial does not match the input resolution (use "
+                f"style_spatial_for(input_size)); reshaping would corrupt "
+                f"the batch dimension")
+        return self.linear(x.reshape(-1, self.out_c))
+
+
+class BackboneEncoder(nn.Module):
+    """ReStyle encoder: IR-SE body over ``input_nc``-channel input and
+    ``n_styles`` map2style heads on its last feature map."""
+
+    def __init__(self, num_layers: int = 50, mode: str = "ir_se",
+                 n_styles: int = 18, input_nc: int = 6,
+                 style_spatial: int = 9):
+        super().__init__()
+        self.input_layer = nn.Sequential(
+            nn.Conv2d(input_nc, 64, 3, padding=1, bias=False),
+            nn.BatchNorm2d(64), nn.PReLU(64))
+        self.body = nn.Sequential(*[
+            BottleneckIR(i, d, s, se=mode == "ir_se")
+            for i, d, s in get_blocks(num_layers)])
+        self.styles = nn.ModuleList(GradualStyleBlock(512, 512, style_spatial)
+                                    for _ in range(n_styles))
+
+    def init_weights_(self, generator: torch.Generator):
+        init_conv_xavier_(self.input_layer[0], generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.body(self.input_layer(x))
+        return torch.stack([s(x) for s in self.styles], dim=1)
+
+
+def n_styles_for(output_size: int, generator_ada: bool = True) -> int:
+    """2 * log2(out) - 2, plus 2 for the ADA generator."""
+    n = int(math.log2(output_size)) * 2 - 2
+    return n + 2 if generator_ada else n
+
+
+def style_spatial_for(input_size: int) -> int:
+    """map2style ``spatial`` for an encoder fed ``input_size`` images: the
+    IR body downsamples by 16 and the heads must end at 1x1 (9 for the
+    112 px pipeline's 7x7 maps)."""
+    fmap = max(1, input_size // 16)
+    return 9 if fmap == 7 else 1 << max(1, math.ceil(math.log2(max(2, fmap))))
+
+
+class PSp(nn.Module):
+    """Encoder -> codes (+ the previous latent, or ``latent_avg`` at the
+    first iteration) -> generator -> ``face_pool`` to 256.
+
+    ``latent_avg`` is a buffer outside the state_dict: it travels beside
+    the weights, as in the reference checkpoints."""
+
+    def __init__(self, output_size: int = 128, input_nc: int = 6,
+                 encoder_num_layers: int = 50, input_size: int = 112):
+        super().__init__()
+        self.n_styles = n_styles_for(output_size)
+        self.encoder = BackboneEncoder(
+            encoder_num_layers, "ir_se", self.n_styles, input_nc=input_nc,
+            style_spatial=style_spatial_for(input_size))
+        self.decoder = Generator(z_dim=512, w_dim=512, w_num_layers=8,
+                                 img_resolution=output_size, img_channels=3)
+        self.face_pool = nn.AdaptiveAvgPool2d((256, 256))
+        self.register_buffer("latent_avg", torch.zeros(self.n_styles, 512),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor, latent: Optional[torch.Tensor] = None,
+                resize: bool = True, randomize_noise: bool = True,
+                return_latents: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: (N, input_nc, H, W). Random noise (``randomize_noise``) draws
+        from ``generator``."""
+        codes = self.encoder(x)
+        if latent is not None:
+            codes = codes + latent
+        else:
+            codes = codes + self.latent_avg[None].to(codes.dtype)
+        images = self.decoder(
+            codes, noise_mode="random" if randomize_noise else "const",
+            input_is_latent=True, generator=generator)
+        if resize and images.shape[-1] != 256:
+            images = self.face_pool(images)
+        if return_latents:
+            return images, codes
+        return images
+
+
+def build_psp(output_size: int = 256, input_size: int = 112, seed: int = 0,
+              device: str = "cuda", n_latent: int = 4096) -> PSp:
+    """A ``PSp`` in eval mode with seeded random weights and ``latent_avg``
+    from its own mapping network over ``n_latent`` seeded z. The weights are
+    drawn on the CPU, so a seed gives the same model on every device.
+    Raises when ``device`` is CUDA and no GPU is found."""
+    dev = resolve_device(device)
+    model = PSp(output_size=output_size, input_size=input_size)
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(model, gen)
+    with torch.no_grad():
+        model.latent_avg.copy_(model.decoder.mean_latent(n_latent, gen))
+    return model.eval().to(dev)
