@@ -4,19 +4,36 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure (nonzero exit, no result line):
-  1. build kernels B1 (fused bias-act) and B2 (smooth 2x upsample) from
-     stylegan_for_facerec_torch/ops/csrc with nvcc, in parallel;
+  1. build kernels B1 (fused bias-act), B1b (its gradient), B2 (smooth 2x
+     upsample) and B2b (its adjoint) from stylegan_for_facerec_torch/ops/
+     csrc with nvcc, in parallel;
   2. hold each kernel against its plain PyTorch version on the card at
-     every shape the inversion path gives it, in f32 and bf16;
-  3. run the main path: full-width PSp(output_size=256, input_size=112)
-     ReStyle inversion, seeded random weights, batch 8, 5 iterations,
-     and check that it launched B1 13 and B2 12 times per iteration;
+     every shape the inversion and training paths give it, in f32 and
+     bf16: B1 forward, B1b through autograd (dx, db and the double
+     backward, inputs scaled so the clamp saturates), B2 forward, B2b
+     through autograd;
+  3. inversion: full-width PSp(output_size=256, input_size=112) ReStyle
+     inversion, seeded random weights, batch 8, 5 iterations, and check
+     that it launched B1 13 and B2 12 times per iteration;
   4. run the same weights and inputs on the CPU (plain versions) at
      batch 2 for 2 iterations and compare with the card's result;
-  5. time each kernel at its largest on-path shape beside its memory
-     bound and its plain version, and run_on_batch in images/s;
+  5. time each kernel at its largest on-path shape beside its bound and
+     its plain version, and run_on_batch in images/s;
   6. profile one bf16 batch-128 run_on_batch: device time by kernel and
-     the device's busy share.
+     the device's busy share;
+  7. training: Stage2Coach on the same PSp(256) at input 112, L2 1.0 +
+     LPIPS-alex 0.8 (seeded random LPIPS), Ranger lr 1e-4, one refinement
+     iteration, 3 steps at batch 8 in f32 with TF32 off: finite losses,
+     the decoder unchanged bit for bit, the encoder moved, and per step
+     B1 13, B2 12, B1b 13, B2b 12 launches (13 synthesis layers forward
+     and back, 12 upsamples: 6 in the up layers, 6 of the image skip);
+  8. one first train step from the same seeded weights and inputs at
+     batch 2 on the card and on the CPU: loss, every encoder tensor's
+     update and the BatchNorm running statistics agree;
+  9. training images/s at bf16 batch 32 and 128 and f32 (TF32 off and on)
+     batch 32;
+ 10. profile one bf16 batch-128 train step: device time by kernel and the
+     busy share.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the one before that the card's name and power
 limit as nvidia-smi reports them. Exits nonzero without a GPU.
@@ -25,6 +42,7 @@ limit as nvidia-smi reports them. Exits nonzero without a GPU.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -34,24 +52,47 @@ import time
 import torch
 
 from stylegan_for_facerec_torch.eval.inference import run_on_batch
+from stylegan_for_facerec_torch.losses.perceptual import LPIPS
 from stylegan_for_facerec_torch.models.psp import build_psp
 from stylegan_for_facerec_torch.models.stylegan2_ada import channels_for
+from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build
-from stylegan_for_facerec_torch.ops.fused_act import bias_act, bias_act_plain
-from stylegan_for_facerec_torch.ops.resample import (smooth_upsample,
-                                                     smooth_upsample_plain)
+from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
+                                                      bias_act_grad_plain,
+                                                      bias_act_plain)
+from stylegan_for_facerec_torch.ops.resample import (
+    smooth_upsample, smooth_upsample_grad, smooth_upsample_grad_plain,
+    smooth_upsample_plain)
+from stylegan_for_facerec_torch.train.stage2 import Stage2Coach, Stage2Config
 
 OUTPUT_SIZE, INPUT_SIZE, BATCH, ITERS = 256, 112, 8, 5
 CPU_BATCH, CPU_ITERS = 2, 2
+TRAIN_STEPS, CPU_TRAIN_BATCH = 3, 2
 # relative to the output's largest magnitude: the card's cuDNN convolutions
 # (f32, TF32 off) and the CPU's sum in other orders through 50 IR-SE layers
 # and 14 synthesis layers
 CPU_REL_TOL = 1e-3
+# a first train step's encoder update (-lr times the centralised gradient)
+# against the CPU's, relative to each tensor's largest update: at batch 2
+# a weight-gradient element of the 7x7 stages sums only 98 products, and a
+# PReLU or ReLU input within f32 rounding of 0 on one device takes the
+# other branch there, moving such an element by several per cent of the
+# tensor's largest gradient. On top: 4 f32 ulps of the parameter (p + u
+# rounds once per device, and many updates are a few ulps), and 1e-6 of
+# the largest update of any tensor for gradients that are zero by
+# construction (a shift the next BatchNorm removes) and come out as
+# round-off
+CPU_UPDATE_TOL = 0.1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 B1_FLOPS_PER_ELEM = 5         # add, compare/select, mul, mul, clamp
+B1B_FLOPS_PER_ELEM = 8        # add, compare, 2 mul (y), abs, compare, 2 mul
 B2_FLOPS_PER_INPUT = 30       # 3 x 6 vertical + 2 x 6 horizontal
+B2B_FLOPS_PER_INPUT = 60      # 5 rows x 5 multiply-adds + 5 row weights
+KERNELS = ("bias_act", "bias_act_grad", "smooth_upsample",
+           "smooth_upsample_grad")
+SQRT2 = math.sqrt(2.0)
 
 
 def fail(msg: str):
@@ -64,8 +105,9 @@ def log(msg: str):
 
 
 def on_path_shapes():
-    """(B1 shapes, B2 shapes) that one inversion iteration gives the
-    kernels at batch BATCH, NCHW."""
+    """(B1 shapes, B2 shapes) that one inversion iteration or train step
+    gives the kernels at batch BATCH, NCHW (B1b takes B1's, B2b's output
+    is B2's input)."""
     res = [2 ** i for i in range(2, int(math.log2(OUTPUT_SIZE)) + 1)]
     ch = channels_for(res)
     b1 = [(BATCH, ch[r], r, r) for r in res]
@@ -99,13 +141,81 @@ def phase_build():
                 log(f"  {name}: {line.strip()}")
 
 
+def reset_launches():
+    for f in (bias_act, bias_act_grad, smooth_upsample, smooth_upsample_grad):
+        f.launches = 0
+
+
+def read_launches():
+    return {"bias_act": bias_act.launches,
+            "bias_act_grad": bias_act_grad.launches,
+            "smooth_upsample": smooth_upsample.launches,
+            "smooth_upsample_grad": smooth_upsample_grad.launches}
+
+
+def compare_grads(gen, dname, dtype, b1_shapes, b2_shapes, errs):
+    """B1b (dx, db, double backward) and B2b through the autograd
+    Functions against the plain versions. B1b and its plain version do the
+    same f32 operations on the same inputs and round once: they agree to
+    one rounding of the output (exactly, in practice). B2b: f32 sums 25
+    taps in another order; in bf16 the plain version rounds after each of
+    its steps, the kernel once."""
+    for shape in b1_shapes:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 200
+             ).to(dtype).requires_grad_()
+        b = torch.randn(shape[1], generator=gen, device="cuda"
+                        ).requires_grad_()
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g.requires_grad_()
+        gg = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        y = bias_act(x, b, "lrelu", 1.0, 256.0)
+        dx, db = torch.autograd.grad(y, (x, b), g, create_graph=True)
+        (ddg,) = torch.autograd.grad(dx, g, gg)
+        xd, bd = x.detach(), b.detach()
+        want = bias_act_grad_plain(g.detach(), xd, bd, 0.2, SQRT2, 256.0)
+        want_dd = bias_act_grad_plain(gg, xd, bd, 0.2, SQRT2, 256.0)
+        want_db = want.float().sum((0, 2, 3))
+        if not bool((want == 0).any()):
+            fail(f"B1b {dname} {shape}: the clamp never saturated")
+        ulp = 2.0 ** -23 if dname == "f32" else 2.0 ** -8
+        err = (dx.float() - want.float()).abs()
+        err_dd = (ddg.float() - want_dd.float()).abs()
+        err_db = (db - want_db).abs().max().item()
+        tol_db = 1e-5 * want.float().abs().sum((0, 2, 3)).max().item()
+        if not (bool((err <= ulp * want.float().abs()).all())
+                and bool((err_dd <= ulp * want_dd.float().abs()).all())
+                and err_db <= tol_db):
+            fail(f"B1b {dname} {shape}: dx err {err.max().item():.3e}, "
+                 f"double backward err {err_dd.max().item():.3e}, db err "
+                 f"{err_db:.3e} (tol {tol_db:.3e})")
+        errs[("bias_act_grad", dname)] = max(
+            errs[("bias_act_grad", dname)], err.max().item(),
+            err_dd.max().item())
+    for shape in b2_shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+        n, c, h, w = shape
+        g = torch.randn((n, c, 2 * h, 2 * w), generator=gen,
+                        device="cuda").to(dtype)
+        (got,) = torch.autograd.grad(smooth_upsample(x), x, g)
+        want = smooth_upsample_grad_plain(g)
+        err = (got.float() - want.float()).abs().max().item()
+        # |dx| <= 2.5^2 max|g| (the edge columns' weights sum to 2.5)
+        scale = 6.25 * g.float().abs().max().item()
+        tol = (1e-6 if dname == "f32" else 2.0 ** -6) * scale
+        if err > tol:
+            fail(f"B2b {dname} {shape}: max err {err:.3e} > {tol:.3e}")
+        errs[("smooth_upsample_grad", dname)] = max(
+            errs[("smooth_upsample_grad", dname)], err)
+
+
 def phase_compare(gen):
     """Kernel against plain version on the card; returns the largest
     absolute error of each kernel per dtype."""
     b1_shapes, b2_shapes = on_path_shapes()
-    errs = {("bias_act", d): 0.0 for d in DTYPES}
-    errs.update({("smooth_upsample", d): 0.0 for d in DTYPES})
+    errs = {(k, d): 0.0 for k in KERNELS for d in DTYPES}
     for dname, dtype in DTYPES.items():
+        compare_grads(gen, dname, dtype, b1_shapes, b2_shapes, errs)
         for shape in b1_shapes:
             x = (torch.randn(shape, generator=gen, device="cuda")
                  * 200).to(dtype)
@@ -139,7 +249,8 @@ def phase_compare(gen):
                 errs[("smooth_upsample", dname)], err.max().item())
     torch.cuda.synchronize()
     log(f"phase 2: kernels agree with their plain versions at "
-        f"{len(b1_shapes)} B1 and {len(b2_shapes)} B2 shapes in f32 and "
+        f"{len(b1_shapes)} B1/B1b and {len(b2_shapes)} B2/B2b shapes (the "
+        f"inversion and training paths' at batch {BATCH}) in f32 and "
         f"bf16; max abs err " + ", ".join(
             f"{k}/{d}={v:.3e}" for (k, d), v in errs.items()))
     return errs
@@ -154,14 +265,12 @@ def make_inputs(batch: int, seed: int = 0):
 
 def phase_main_path(model):
     x, avg = make_inputs(BATCH)
-    bias_act.launches = 0
-    smooth_upsample.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs, lats = run_on_batch(model, x.cuda(), avg.cuda(), ITERS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"bias_act": bias_act.launches,
-                "smooth_upsample": smooth_upsample.launches}
+    launches = read_launches()
     n_styles = model.n_styles
     if tuple(outs.shape) != (ITERS, BATCH, 256, 256, 3):
         fail(f"outputs shape {tuple(outs.shape)}")
@@ -169,7 +278,8 @@ def phase_main_path(model):
         fail(f"latents shape {tuple(lats.shape)}")
     if not (torch.isfinite(outs).all() and torch.isfinite(lats).all()):
         fail("non-finite outputs")
-    want = {"bias_act": 13 * ITERS, "smooth_upsample": 12 * ITERS}
+    want = {"bias_act": 13 * ITERS, "bias_act_grad": 0,
+            "smooth_upsample": 12 * ITERS, "smooth_upsample_grad": 0}
     if launches != want:
         fail(f"launches {launches}, expected {want}")
     log(f"phase 3: PSp({OUTPUT_SIZE}) inversion, batch {BATCH}, {ITERS} "
@@ -198,35 +308,54 @@ def phase_cpu_reference(model, outs, lats):
 
 
 def kernel_timings(gen):
+    """Each kernel and its plain version at the largest shape the paths
+    give it; the bound is bytes moved (each input read once, each output
+    written once) over the HBM rate, or operations over the f32 rate."""
     b1_shapes, b2_shapes = on_path_shapes()
     b1_shape = max(b1_shapes, key=math.prod)
     b2_shape = max(b2_shapes, key=math.prod)
+    n2, c2, h2, w2 = b2_shape
+    b2_out = (n2, c2, 2 * h2, 2 * w2)
     rows = {}
     for dname, dtype in DTYPES.items():
         elem = torch.finfo(dtype).bits // 8
         x = torch.randn(b1_shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(b1_shape, generator=gen, device="cuda").to(dtype)
         b = torch.randn(b1_shape[1], generator=gen, device="cuda")
         n = x.numel()
-        ms = cuda_time_ms(lambda: bias_act(x, b, "lrelu", 1.0, 256.0))
-        plain = cuda_time_ms(lambda: bias_act_plain(x, b, "lrelu", 1.0,
-                                                    256.0))
         rows[("bias_act", dname)] = dict(
-            shape=b1_shape, ms=ms, plain_ms=plain,
-            bytes_ms=2 * n * elem / HBM_BYTES_PER_S * 1e3,
+            shape=b1_shape,
+            ms=cuda_time_ms(lambda: bias_act(x, b, "lrelu", 1.0, 256.0)),
+            plain_ms=cuda_time_ms(lambda: bias_act_plain(
+                x, b, "lrelu", 1.0, 256.0)),
+            bytes_ms=(2 * n * elem + 4 * b.numel()) / HBM_BYTES_PER_S * 1e3,
             ops_ms=B1_FLOPS_PER_ELEM * n / F32_FLOPS_PER_S * 1e3)
+        rows[("bias_act_grad", dname)] = dict(
+            shape=b1_shape,
+            ms=cuda_time_ms(lambda: bias_act_grad(g, x, b, 0.2, SQRT2,
+                                                  256.0)),
+            plain_ms=cuda_time_ms(lambda: bias_act_grad_plain(
+                g, x, b, 0.2, SQRT2, 256.0)),
+            bytes_ms=(3 * n * elem + 4 * b.numel()) / HBM_BYTES_PER_S * 1e3,
+            ops_ms=B1B_FLOPS_PER_ELEM * n / F32_FLOPS_PER_S * 1e3)
         x = torch.randn(b2_shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(b2_out, generator=gen, device="cuda").to(dtype)
         n = x.numel()
-        ms = cuda_time_ms(lambda: smooth_upsample(x))
-        plain = cuda_time_ms(lambda: smooth_upsample_plain(x))
         rows[("smooth_upsample", dname)] = dict(
-            shape=b2_shape, ms=ms, plain_ms=plain,
+            shape=b2_shape, ms=cuda_time_ms(lambda: smooth_upsample(x)),
+            plain_ms=cuda_time_ms(lambda: smooth_upsample_plain(x)),
             bytes_ms=5 * n * elem / HBM_BYTES_PER_S * 1e3,
             ops_ms=B2_FLOPS_PER_INPUT * n / F32_FLOPS_PER_S * 1e3)
+        rows[("smooth_upsample_grad", dname)] = dict(
+            shape=b2_out, ms=cuda_time_ms(lambda: smooth_upsample_grad(g)),
+            plain_ms=cuda_time_ms(lambda: smooth_upsample_grad_plain(g)),
+            bytes_ms=5 * n * elem / HBM_BYTES_PER_S * 1e3,
+            ops_ms=B2B_FLOPS_PER_INPUT * n / F32_FLOPS_PER_S * 1e3)
     for (k, d), r in rows.items():
         bound = max(r["bytes_ms"], r["ops_ms"])
         log(f"phase 5: {k} {d} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms "
-            f"({bound / r['ms']:.1%} of the bytes bound)")
+            f"({bound / r['ms']:.1%} of the bound)")
     return rows
 
 
@@ -246,33 +375,185 @@ def inversion_rate(model, batch: int, dtype) -> float:
     return batch * reps / (time.perf_counter() - t0)
 
 
-def profile_breakdown(model, batch: int, dtype, top: int = 12):
-    """Device time by kernel over one run_on_batch call (torch.profiler),
-    and the device's busy share of that call's wall time."""
+def profile_breakdown(label: str, fn, top: int = 12):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share of that call's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    m = copy.deepcopy(model).to(dtype)
-    x, avg = make_inputs(batch, seed=2)
-    x, avg = x.cuda().to(dtype), avg.cuda().to(dtype)
-    run_on_batch(m, x, avg, ITERS)                   # warm-up
+    fn()                                              # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_on_batch(m, x, avg, ITERS)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device kernels only: a user annotation such as the optimizer's
+    # "Optimizer.step#Ranger.step" spans kernels that are counted already
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in events if getattr(e, "is_user_annotation", False)
+             or e.key.startswith("Optimizer.")]
+    kern = [e for e in events if e not in spans]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if dev_ms <= 0:
-        log("phase 6: the profiler recorded no device time")
+        log(f"{label}: the profiler recorded no device time")
         return
-    log(f"phase 6: profile of run_on_batch {dtype} batch {batch}: device "
-        f"busy {dev_ms:.1f} ms of {wall_ms:.1f} ms wall "
+    log(f"{label}: device busy {dev_ms:.1f} ms of {wall_ms:.1f} ms wall "
         f"({dev_ms / wall_ms:.1%})")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         t = e.self_device_time_total / 1e3
         log(f"  {t:9.2f} ms {t / dev_ms:6.1%} x{e.count:<5d} {e.key[:90]}")
+    for e in spans:
+        log(f"  annotated span {e.key}: {e.device_time_total / 1e3:.2f} ms "
+            f"of device time inside it")
+
+
+def make_coach(device: str, compute_dtype: str = "float32") -> Stage2Coach:
+    """The stage-2 recipe at full width: PSp(256) at input 112, L2 1.0 +
+    LPIPS-alex 0.8 (seeded random LPIPS weights: no pretrained ones are in
+    the repository), Ranger lr 1e-4, one refinement iteration. The weights
+    are drawn on the CPU from seed 0, so every device gets the same."""
+    lpips = LPIPS("alex")
+    init_weights(lpips, torch.Generator().manual_seed(99))
+    cfg = Stage2Config(output_size=OUTPUT_SIZE, n_iters_per_batch=1,
+                       l2_lambda=1.0, lpips_lambda=0.8, learning_rate=1e-4,
+                       compute_dtype=compute_dtype)
+    return Stage2Coach(cfg, lpips_fn=lpips.requires_grad_(False).eval().to(
+        device), device=device, seed=0)
+
+
+def train_inputs(batch: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.rand((batch, INPUT_SIZE, INPUT_SIZE, 3), generator=g) * 2
+            - 1 for _ in range(2)]
+
+
+def phase_train(coach, avg):
+    """The training main path: TRAIN_STEPS steps at batch BATCH, f32."""
+    x, y = (t.cuda() for t in train_inputs(BATCH, seed=3))
+    noise = torch.Generator(device="cuda").manual_seed(4)
+    before = {k: v.clone() for k, v in coach.model.state_dict().items()}
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        loss, logs, y_hat = coach.train_step(x, y, avg, noise)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite training losses {losses}")
+    if (tuple(y_hat.shape) != (BATCH, INPUT_SIZE, INPUT_SIZE, 3)
+            or not torch.isfinite(y_hat).all()):
+        fail(f"y_hat {tuple(y_hat.shape)} or not finite")
+    after = coach.model.state_dict()
+    dec = [k for k in before if k.startswith("decoder.")]
+    changed = [k for k in dec if not torch.equal(before[k], after[k])]
+    if changed:
+        fail(f"the frozen decoder changed: {changed[:5]}")
+    enc = [f"encoder.{k}" for k, _ in coach.model.encoder.named_parameters()]
+    moved = [k for k in enc if not torch.equal(before[k], after[k])]
+    # a few BatchNorm shifts have gradients that are zero by construction
+    if len(moved) < 0.9 * len(enc):
+        fail(f"only {len(moved)} of {len(enc)} encoder tensors moved")
+    want = {"bias_act": 13 * TRAIN_STEPS, "bias_act_grad": 13 * TRAIN_STEPS,
+            "smooth_upsample": 12 * TRAIN_STEPS,
+            "smooth_upsample_grad": 12 * TRAIN_STEPS}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}")
+    log(f"phase 7: Stage2Coach PSp({OUTPUT_SIZE}) f32, batch {BATCH}, "
+        f"{TRAIN_STEPS} steps in {dt:.2f} s (first calls); losses "
+        + ", ".join(f"{v:.5f}" for v in losses)
+        + f"; decoder unchanged ({len(dec)} tensors), {len(moved)} of "
+        f"{len(enc)} encoder tensors moved; launches {launches} "
+        f"(13/13/12/12 per step)")
+    return launches
+
+
+def phase_train_cpu_reference(latent_avg, avg):
+    """One first step of fresh coaches (seed 0: the same weights) on the
+    card and on the CPU, same inputs; noise_strength is 0 at init, so the
+    two devices' different random noise drops out."""
+    card, cpu = make_coach("cuda"), make_coach("cpu")
+    with torch.no_grad():
+        card.model.latent_avg.copy_(latent_avg)
+        cpu.model.latent_avg.copy_(latent_avg.cpu())
+    x, y = train_inputs(CPU_TRAIN_BATCH, seed=5)
+    before = cpu.model.state_dict()
+    before = {k: v.clone() for k, v in before.items()}
+    loss, _, _ = card.train_step(x.cuda(), y.cuda(), avg,
+                                 torch.Generator(device="cuda"))
+    t0 = time.perf_counter()
+    c_loss, _, _ = cpu.train_step(x, y, avg.cpu(), torch.Generator())
+    dt = time.perf_counter() - t0
+    got = {k: v.detach().cpu() for k, v in card.model.state_dict().items()}
+    want = cpu.model.state_dict()
+    del card
+    lrel = abs(loss.item() - c_loss.item()) / abs(c_loss.item())
+    if not lrel <= CPU_REL_TOL:
+        fail(f"train loss card {loss.item()} vs CPU {c_loss.item()}")
+    params = [f"encoder.{k}" for k, _ in cpu.model.encoder.named_parameters()]
+    gmax = max((want[k] - before[k]).abs().max().item() for k in params)
+    floor = 1e-6 * gmax
+    worst, worst_k, sq_diff, sq_u = 0.0, None, 0.0, 0.0
+    for k in params:
+        u_cpu, u_card = want[k] - before[k], got[k] - before[k]
+        diff = (u_card - u_cpu).abs()
+        tol = (CPU_UPDATE_TOL * u_cpu.abs().max().item() + floor
+               + 4 * torch.finfo(torch.float32).eps * want[k].abs())
+        ratio = (diff / tol).max().item()
+        if ratio > worst:
+            worst, worst_k = ratio, k
+        sq_diff += diff.square().sum().item()
+        sq_u += u_cpu.square().sum().item()
+    if worst > 1.0:
+        fail(f"encoder update {worst_k} differs by {worst:.2f}x the "
+             f"tolerance")
+    # the step's batch statistics, (running - (1 - m) * before) / m with
+    # BatchNorm's momentum m = 0.1: mean against the layer's spread, var
+    # against the layer's largest var
+    bn_err = 0.0
+    for k in want:
+        if not k.endswith("running_mean"):
+            continue
+        kv = k[:-len("mean")] + "var"
+        m_cpu, m_card, v_cpu, v_card = (
+            (d[n] - 0.9 * before[n]) / 0.1
+            for d, n in ((want, k), (got, k), (want, kv), (got, kv)))
+        vmax = v_cpu.abs().max().item()
+        err = max((m_card - m_cpu).abs().max().item() / math.sqrt(vmax),
+                  (v_card - v_cpu).abs().max().item() / vmax)
+        if err > CPU_REL_TOL:
+            fail(f"BatchNorm {k[:-len('.running_mean')]}: card vs CPU batch "
+                 f"statistics differ by {err:.3e} of the layer's scale")
+        bn_err = max(bn_err, err)
+    log(f"phase 8: first train step card vs CPU at batch "
+        f"{CPU_TRAIN_BATCH}: loss {loss.item():.6f} vs {c_loss.item():.6f} "
+        f"(rel {lrel:.2e}); worst encoder tensor {worst_k} at {worst:.3f} "
+        f"of its tolerance; all encoder updates together differ by "
+        f"{math.sqrt(sq_diff / sq_u):.2e} in norm; BatchNorm batch "
+        f"statistics rel err "
+        f"{bn_err:.2e}; CPU step {dt:.1f} s")
+
+
+def train_rate(coach, avg, batch: int, compute_dtype: str) -> dict:
+    coach.cfg = dataclasses.replace(coach.cfg, compute_dtype=compute_dtype)
+    x, y = (t.cuda() for t in train_inputs(batch, seed=6))
+    noise = torch.Generator(device="cuda").manual_seed(7)
+    coach.train_step(x, y, avg, noise)                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss, _, _ = coach.train_step(x, y, avg, noise)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not math.isfinite(loss.item()):
+        fail(f"non-finite loss at {compute_dtype} batch {batch}")
+    return {"images_per_s": batch * reps / dt, "step_ms": dt / reps * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def nvidia_smi_line() -> str:
@@ -282,6 +563,22 @@ def nvidia_smi_line() -> str:
     if r.returncode != 0 or not r.stdout.strip():
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+SOURCES = {
+    "bias_act": ("stylegan_for_facerec_torch/ops/csrc/bias_act.cu",
+                 "stylegan_for_facerec_tpu/ops/fused_act.py:72"),
+    "bias_act_grad": ("stylegan_for_facerec_torch/ops/csrc/bias_act_grad.cu",
+                      "stylegan_for_facerec_tpu/ops/fused_act.py:80"),
+    "smooth_upsample": (
+        "stylegan_for_facerec_torch/ops/csrc/smooth_upsample.cu",
+        "stylegan_for_facerec_tpu/ops/upfirdn_pallas.py:42"),
+    # no Pallas twin: the JAX package leaves this gradient to XLA's
+    # autodiff of the function named here
+    "smooth_upsample_grad": (
+        "stylegan_for_facerec_torch/ops/csrc/smooth_upsample_grad.cu",
+        "stylegan_for_facerec_tpu/ops/resample.py:41"),
+}
 
 
 def main():
@@ -297,7 +594,7 @@ def main():
     phase_build()
     errs = phase_compare(gen)
     model = build_psp(OUTPUT_SIZE, INPUT_SIZE, seed=0, device="cuda")
-    outs, lats, launches = phase_main_path(model)
+    outs, lats, inv_launches = phase_main_path(model)
     phase_cpu_reference(model, outs, lats)
     timings = kernel_timings(gen)
     rates = {}
@@ -311,32 +608,58 @@ def main():
             log(f"phase 5: run_on_batch {dname} batch {batch}, {ITERS} "
                 f"iterations: {rates[(dname, batch)]:.1f} images/s")
         torch.backends.cudnn.allow_tf32 = False
-    profile_breakdown(model, 128, torch.bfloat16)
+    m16 = copy.deepcopy(model).to(torch.bfloat16)
+    x16, avg16 = (t.cuda().to(torch.bfloat16)
+                  for t in make_inputs(128, seed=2))
+    profile_breakdown("phase 6: profile of run_on_batch bf16 batch 128",
+                      lambda: run_on_batch(m16, x16, avg16, ITERS))
+    del model, m16, outs, lats
+
+    coach = make_coach("cuda")
+    coach.estimate_latent_avg(torch.Generator(device="cuda").manual_seed(1),
+                              n_latent=4096)
+    avg = coach.make_avg_image()
+    train_launches = phase_train(coach, avg)
+    phase_train_cpu_reference(coach.model.latent_avg, avg)
+    train_rates = {}
+    for dname, cdt, tf32, batch in (("bf16", "bfloat16", False, 32),
+                                    ("bf16", "bfloat16", False, 128),
+                                    ("f32", "float32", False, 32),
+                                    ("tf32", "float32", True, 32)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        r = train_rate(coach, avg, batch, cdt)
+        train_rates[f"{dname}_batch{batch}"] = r
+        log(f"phase 9: train step {dname} batch {batch}: "
+            f"{r['images_per_s']:.1f} images/s, {r['step_ms']:.1f} ms/step, "
+            f"peak {r['peak_gib']:.1f} GiB")
+        torch.backends.cudnn.allow_tf32 = False
+    coach.cfg = dataclasses.replace(coach.cfg, compute_dtype="bfloat16")
+    xt, yt = (t.cuda() for t in train_inputs(128, seed=8))
+    noise = torch.Generator(device="cuda").manual_seed(9)
+    profile_breakdown("phase 10: profile of a bf16 batch-128 train step",
+                      lambda: coach.train_step(xt, yt, avg, noise))
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    sources = {"bias_act": ("stylegan_for_facerec_torch/ops/csrc/bias_act.cu",
-                            "stylegan_for_facerec_tpu/ops/fused_act.py:72"),
-               "smooth_upsample": (
-                   "stylegan_for_facerec_torch/ops/csrc/smooth_upsample.cu",
-                   "stylegan_for_facerec_tpu/ops/upfirdn_pallas.py:42")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in SOURCES.items():
         r, rb = timings[(name, "f32")], timings[(name, "bf16")]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": errs[(name, "f32")], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
             else "operations",
             "library_ms": None, "shape": list(r["shape"]), "dtype": "f32",
+            "launches_inversion": inv_launches[name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
     print(json.dumps({"inversion_images_per_s": {
-        f"{d}_batch{b}": v for (d, b), v in rates.items()}}))
+        f"{d}_batch{b}": v for (d, b), v in rates.items()},
+        "train": train_rates}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,11 @@
 """PyTorch/CUDA port of stylegan_for_facerec_tpu for NVIDIA Hopper.
 
-This slice covers iterative ReStyle pSp inversion: the IR-SE encoder, the
+Slice 1: iterative ReStyle pSp inversion: the IR-SE encoder, the
 StyleGAN2-ADA synthesis network with hand-written CUDA kernels for its
 fused bias-activation (B1) and smooth 2x upsample (B2), weight transfer
 from the JAX package, checkpoints and the inversion CLI.
+Slice 2: stage-2 encoder training (the ReStyle pSp coach): the backward
+kernels B1b and B2b behind autograd Functions, LPIPS and the identity
+losses, Ranger, logging, the checkpoint manager, preemption handling and
+the training CLI.
 """

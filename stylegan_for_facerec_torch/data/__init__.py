@@ -1,3 +1,3 @@
-from .images_dataset import InferenceDataset
+from .images_dataset import ImagesDataset, InferenceDataset, list_images
 
-__all__ = ["InferenceDataset"]
+__all__ = ["ImagesDataset", "InferenceDataset", "list_images"]

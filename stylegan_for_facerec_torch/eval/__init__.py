@@ -1,3 +1,3 @@
-from .inference import run_on_batch, tensor2im
+from .inference import face_grid, run_on_batch, tensor2im
 
-__all__ = ["run_on_batch", "tensor2im"]
+__all__ = ["face_grid", "run_on_batch", "tensor2im"]

@@ -1,9 +1,12 @@
-"""Iterative ReStyle inversion (``run_on_batch``) and ``tensor2im``.
+"""Iterative ReStyle inversion (``run_on_batch``), ``tensor2im`` and
+``face_grid``.
 
 Public layout is NHWC, as in the JAX package: images in and out are
 (B, H, W, 3) in [-1, 1]."""
 
 from __future__ import annotations
+
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -44,3 +47,22 @@ def tensor2im(x) -> np.ndarray:
         else np.asarray(x)
     arr = np.clip((arr + 1) / 2, 0, 1) * 255
     return arr.astype(np.uint8)
+
+
+def face_grid(entries: List[Dict]) -> np.ndarray:
+    """Tile rows of [input | target | outputs...] faces ((H, W, 3) in
+    [-1, 1]; ``output_face`` one image or a list) into one uint8 image."""
+    rows = []
+    for e in entries:
+        imgs = [tensor2im(e["input_face"]), tensor2im(e["target_face"])]
+        outs = e["output_face"]
+        if not isinstance(outs, (list, tuple)):
+            outs = [outs]
+        imgs += [tensor2im(o) for o in outs]
+        h = max(im.shape[0] for im in imgs)
+        imgs = [np.pad(im, ((0, h - im.shape[0]), (0, 0), (0, 0)))
+                for im in imgs]
+        rows.append(np.concatenate(imgs, axis=1))
+    w = max(r.shape[1] for r in rows)
+    rows = [np.pad(r, ((0, 0), (0, w - r.shape[1]), (0, 0))) for r in rows]
+    return np.concatenate(rows, axis=0)

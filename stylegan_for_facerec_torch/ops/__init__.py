@@ -1,10 +1,15 @@
-"""Ops of the PyTorch port: kernels B1 and B2 with their plain versions,
-the modulated convolution and the bilinear resize."""
+"""Ops of the PyTorch port: kernels B1/B1b (bias-act and its gradient) and
+B2/B2b (smooth 2x upsample and its adjoint) with their plain versions, the
+modulated convolution and the bilinear resize."""
 
-from .fused_act import bias_act, bias_act_plain
+from .fused_act import (bias_act, bias_act_grad, bias_act_grad_plain,
+                        bias_act_plain)
 from .image import resize_bilinear
 from .modconv import modulated_conv2d
-from .resample import smooth_upsample, smooth_upsample_plain
+from .resample import (smooth_upsample, smooth_upsample_grad,
+                       smooth_upsample_grad_plain, smooth_upsample_plain)
 
-__all__ = ["bias_act", "bias_act_plain", "modulated_conv2d",
-           "resize_bilinear", "smooth_upsample", "smooth_upsample_plain"]
+__all__ = ["bias_act", "bias_act_grad", "bias_act_grad_plain",
+           "bias_act_plain", "modulated_conv2d", "resize_bilinear",
+           "smooth_upsample", "smooth_upsample_grad",
+           "smooth_upsample_grad_plain", "smooth_upsample_plain"]

@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("build")
-SOURCES = ("bias_act", "smooth_upsample")
+SOURCES = ("bias_act", "bias_act_grad", "smooth_upsample",
+           "smooth_upsample_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,9 +81,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_input(op: str, x: torch.Tensor, *others: torch.Tensor) -> int:
     """Refuse what the kernels do not take; returns the C dtype code of x.
-
-    The kernels are forward only: a tensor that autograd would track
-    raises, since their backward kernels do not exist yet."""
+    Gradients are the autograd Functions' business (``fused_act``,
+    ``resample``), which launch the backward kernels."""
     if x.device.type != "cuda":
         raise ValueError(f"{op}: kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -90,10 +90,6 @@ def check_input(op: str, x: torch.Tensor, *others: torch.Tensor) -> int:
                         f"got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{op}: kernel needs a contiguous NCHW tensor")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x,)
-                                       + others):
-        raise RuntimeError(f"{op}: the kernel has no backward yet; call it "
-                           f"under torch.inference_mode() or no_grad()")
     for t in others:
         if t.device != x.device:
             raise ValueError(f"{op}: operands on {t.device} and {x.device}")

@@ -1,11 +1,23 @@
-"""Fused bias + leaky ReLU + gain + clamp (the StyleGAN2-ADA activation).
+"""Fused bias + leaky ReLU + gain + clamp (the StyleGAN2-ADA activation),
+and its gradient.
 
-``bias_act`` on a CUDA tensor launches kernel B1 (``csrc/bias_act.cu``),
-which replaces the Pallas kernel ``_fba_kernel`` of
-``stylegan_for_facerec_tpu/ops/fused_act.py::fused_bias_act_pallas``. On a
-CPU tensor it runs ``bias_act_plain``, the same function in plain PyTorch.
-B1 is bound by memory: it moves 2 * numel * elem bytes, one read of x and
-one write of y, where the plain version makes four passes.
+``bias_act`` runs as the autograd Function ``_BiasAct``. On a CUDA tensor
+its forward launches kernel B1 (``csrc/bias_act.cu``), which replaces the
+Pallas kernel ``_fba_kernel`` of
+``stylegan_for_facerec_tpu/ops/fused_act.py::fused_bias_act_pallas``, and
+its backward launches kernel B1b (``csrc/bias_act_grad.cu``), which
+replaces ``_fba_grad_kernel`` of that op's custom VJP. On a CPU tensor the
+same Functions run the plain versions, ``bias_act_plain`` and
+``bias_act_grad_plain``. B1 moves 2 * numel * elem bytes (x read, y
+written), B1b 3 * numel * elem (x and g read, dx written); both are bound
+by memory.
+
+The backward is itself a Function (``_BiasActGrad``) whose backward calls
+the grad kernel on the incoming gradient: dx is linear in g and piecewise
+constant in x, so that gives the second derivative (stage 1's R1 penalty
+differentiates through B1 twice). The bias gradient ``db = sum(dx)`` is
+taken in PyTorch, as the JAX package sums outside its kernel, and only
+when the bias requires a gradient.
 """
 
 from __future__ import annotations
@@ -41,6 +53,28 @@ def bias_act_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
     return x * g if g != 1.0 else x
 
 
+def bias_act_grad_plain(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
+                        slope: float, gain: float,
+                        clamp: Optional[float]) -> torch.Tensor:
+    """The rule of the JAX grad kernel, with its total ``gain`` and
+    ``clamp`` (the caller's already multiplied in):
+
+        v = x + b;  y = (v >= 0 ? v : slope v) * gain
+        dx = g * (v >= 0 ? gain : slope * gain) * [|y| < clamp]
+
+    The mask is strict, as ``_fba_grad_kernel``'s: ``jnp.clip``'s own
+    gradient would pass half at |y| == clamp. Computed in f32 (f64 for f64
+    inputs), as B1b does, and returned in x's dtype."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    v = x.to(ct) + bias.to(ct).reshape((1, -1) + (1,) * (x.dim() - 2))
+    pos = v >= 0
+    d = torch.where(pos, v.new_full((), gain), v.new_full((), slope * gain))
+    if clamp is not None:
+        y = torch.where(pos, v, v * slope) * gain
+        d = torch.where(y.abs() < clamp, d, 0.0)
+    return (g.to(ct) * d).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("bias_act").sgfr_fused_bias_act
@@ -52,33 +86,123 @@ def _entry():
     return fn
 
 
-def bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-             act: str = "lrelu", gain: float = 1.0,
-             clamp: Optional[float] = None) -> torch.Tensor:
-    """The semantics of ``bias_act_plain``; kernel B1 on a CUDA tensor
-    (contiguous, f32 or bf16, math in f32), the plain version on a CPU one.
-    ``bias_act.launches`` counts the kernel's launches."""
-    if x.device.type == "cpu":
-        return bias_act_plain(x, bias, act, gain, clamp)
-    if act not in _ACTS:
-        raise ValueError(act)
-    if bias is None:
-        bias = torch.zeros(x.shape[1], device=x.device)
-    code = build.check_input("bias_act", x, bias)
+@functools.lru_cache(maxsize=None)
+def _grad_entry():
+    fn = build.load("bias_act_grad").sgfr_fused_bias_act_grad
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_bias(op: str, x: torch.Tensor, bias: torch.Tensor) -> int:
+    code = build.check_input(op, x, bias)
     if x.dim() < 2 or bias.shape != (x.shape[1],):
-        raise ValueError(f"bias_act: x {tuple(x.shape)} needs a bias of "
-                         f"shape (C,) for C = dim 1, got {tuple(bias.shape)}")
-    slope, act_gain = _ACTS[act]
+        raise ValueError(f"{op}: x {tuple(x.shape)} needs a bias of shape "
+                         f"(C,) for C = dim 1, got {tuple(bias.shape)}")
+    return code
+
+
+def _forward(x: torch.Tensor, bias: torch.Tensor, slope: float, gain: float,
+             clamp: Optional[float]) -> torch.Tensor:
+    """Kernel B1 on a CUDA tensor; ``gain``/``clamp`` are the totals."""
+    code = _check_bias("bias_act", x, bias)
     b = bias.detach().to(torch.float32).contiguous()
     y = torch.empty_like(x)
-    hw = math.prod(x.shape[2:])
-    rc = _entry()(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), hw,
-                  x.shape[1], code, slope, act_gain * gain,
-                  -1.0 if clamp is None else clamp * gain,
+    rc = _entry()(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(),
+                  math.prod(x.shape[2:]), x.shape[1], code, slope, gain,
+                  -1.0 if clamp is None else clamp,
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error("bias_act", rc)
     bias_act.launches += 1
     return y
 
 
+def bias_act_grad(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
+                  slope: float, gain: float,
+                  clamp: Optional[float]) -> torch.Tensor:
+    """The semantics of ``bias_act_grad_plain``; kernel B1b on a CUDA
+    tensor (g and x contiguous, of one shape and dtype, f32 or bf16; math
+    in f32), the plain version on a CPU one. ``bias_act_grad.launches``
+    counts the kernel's launches."""
+    if x.device.type == "cpu":
+        return bias_act_grad_plain(g, x, bias, slope, gain, clamp)
+    code = _check_bias("bias_act_grad", x, bias)
+    if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+            or not g.is_contiguous()):
+        raise ValueError(f"bias_act_grad: g {tuple(g.shape)} {g.dtype} "
+                         f"{g.device} must be contiguous and match x "
+                         f"{tuple(x.shape)} {x.dtype} {x.device}")
+    b = bias.detach().to(torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    rc = _grad_entry()(g.data_ptr(), x.data_ptr(), b.data_ptr(),
+                       dx.data_ptr(), x.numel(), math.prod(x.shape[2:]),
+                       x.shape[1], code, slope, gain, slope * gain,
+                       -1.0 if clamp is None else clamp,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    build.raise_on_error("bias_act_grad", rc)
+    bias_act_grad.launches += 1
+    return dx
+
+
+class _BiasActGrad(torch.autograd.Function):
+    """dx = B1b(g, x, b). Linear in g, piecewise constant in x and b: its
+    own backward is B1b applied to the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, g, x, bias, slope, gain, clamp):
+        ctx.save_for_backward(x, bias)
+        ctx.params = (slope, gain, clamp)
+        return bias_act_grad(g.contiguous(), x, bias, slope, gain, clamp)
+
+    @staticmethod
+    def backward(ctx, ggx):
+        x, bias = ctx.saved_tensors
+        return (_BiasActGrad.apply(ggx, x, bias, *ctx.params),
+                None, None, None, None, None)
+
+
+class _BiasAct(torch.autograd.Function):
+    """y = B1(x, b); saves x and the bias, as ``_fba_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, bias, act, gain, clamp):
+        slope, act_gain = _ACTS[act]
+        ctx.save_for_backward(x, bias)
+        ctx.params = (slope, act_gain * gain,
+                      None if clamp is None else clamp * gain)
+        if x.device.type == "cpu":
+            return bias_act_plain(x, bias, act, gain, clamp)
+        return _forward(x, bias, *ctx.params)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bias = ctx.saved_tensors
+        dx = _BiasActGrad.apply(dy, x, bias, *ctx.params)
+        db = None
+        if ctx.needs_input_grad[1]:
+            dims = [d for d in range(dx.dim()) if d != 1]
+            ct = torch.promote_types(dx.dtype, torch.float32)
+            db = dx.to(ct).sum(dims).to(bias.dtype)
+        return dx, db, None, None, None
+
+
+def bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+             act: str = "lrelu", gain: float = 1.0,
+             clamp: Optional[float] = None) -> torch.Tensor:
+    """The semantics of ``bias_act_plain``, differentiable twice: kernels
+    B1 forward and B1b backward on a CUDA tensor (contiguous, f32 or bf16,
+    math in f32), the plain versions on a CPU one.
+    ``bias_act.launches`` counts B1's launches."""
+    if act not in _ACTS:
+        raise ValueError(act)
+    if bias is None:
+        bias = torch.zeros(x.shape[1], device=x.device)
+    return _BiasAct.apply(x, bias, act, gain, clamp)
+
+
 bias_act.launches = 0
+bias_act_grad.launches = 0

@@ -1,13 +1,22 @@
 """StyleGAN2-ADA smooth 2x upsample: nearest x2, replication pad (2,1,2,1),
-[1,3,3,1]/8 blur on both axes. NCHW.
+[1,3,3,1]/8 blur on both axes. NCHW. And its adjoint.
 
-``smooth_upsample`` on a CUDA tensor launches kernel B2
-(``csrc/smooth_upsample.cu``), which replaces the Pallas kernel ``_kernel``
-of ``stylegan_for_facerec_tpu/ops/upfirdn_pallas.py::smooth_upsample_pallas``.
-On a CPU tensor it runs ``smooth_upsample_plain``, the literal reference
-sequence. B2 is bound by memory: it moves 5 * numel_in * elem bytes (one
-read, a 4x larger write) and never stores the 4x nearest-upsampled tensor
-that the plain version makes and pads.
+``smooth_upsample`` runs as the autograd Function ``_SmoothUpsample``. On
+a CUDA tensor its forward launches kernel B2 (``csrc/smooth_upsample.cu``),
+which replaces the Pallas kernel ``_kernel`` of
+``stylegan_for_facerec_tpu/ops/upfirdn_pallas.py::smooth_upsample_pallas``,
+and its backward launches kernel B2b (``csrc/smooth_upsample_grad.cu``),
+the adjoint stencil. B2b has no Pallas twin: the JAX package leaves this
+gradient to XLA's autodiff of ``ops/resample.py::smooth_upsample``. On a
+CPU tensor the same Functions run ``smooth_upsample_plain`` (the literal
+reference sequence) and ``smooth_upsample_grad_plain`` (its steps
+transposed, in reverse order). Both kernels are bound by memory: each
+moves 5 * numel_in * elem bytes and never stores the 4x nearest-upsampled
+tensor that the plain versions make and pad.
+
+The op is linear, so the adjoint's own backward is the forward again:
+``_SmoothUpsampleGrad.backward`` calls B2, and the pair is differentiable
+to any order.
 """
 
 from __future__ import annotations
@@ -23,14 +32,48 @@ from . import build
 _K1D = (1.0 / 8, 3.0 / 8, 3.0 / 8, 1.0 / 8)
 
 
-def smooth_upsample_plain(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) -> (N, C, 2H, 2W), computed in x's dtype."""
+def _taps(x: torch.Tensor):
+    """The depthwise 1-D blur weights, (C, 1, 4, 1) and (C, 1, 1, 4)."""
     c = x.shape[1]
     k = torch.tensor(_K1D, dtype=x.dtype, device=x.device)
+    return (k.reshape(1, 1, 4, 1).expand(c, 1, 4, 1),
+            k.reshape(1, 1, 1, 4).expand(c, 1, 1, 4))
+
+
+def smooth_upsample_plain(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, 2H, 2W), computed in x's dtype."""
+    kv, kh = _taps(x)
     x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
     x = F.pad(x, (2, 1, 2, 1), mode="replicate")
-    x = F.conv2d(x, k.reshape(1, 1, 4, 1).expand(c, 1, 4, 1), groups=c)
-    return F.conv2d(x, k.reshape(1, 1, 1, 4).expand(c, 1, 1, 4), groups=c)
+    x = F.conv2d(x, kv, groups=x.shape[1])
+    return F.conv2d(x, kh, groups=x.shape[1])
+
+
+def _fold_replicate_pad(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Adjoint of replication padding (2 before, 1 after) along ``dim``:
+    the padded cells' gradients return to the edge cells they copied."""
+    n = t.shape[dim] - 3
+    lo = t.narrow(dim, 0, 2).sum(dim, keepdim=True)
+    hi = t.narrow(dim, n + 2, 1)
+    body = t.narrow(dim, 2, n)
+    if n == 1:
+        return body + lo + hi
+    return torch.cat([body.narrow(dim, 0, 1) + lo, body.narrow(dim, 1, n - 2),
+                      body.narrow(dim, n - 1, 1) + hi], dim)
+
+
+def smooth_upsample_grad_plain(g: torch.Tensor) -> torch.Tensor:
+    """(N, C, 2H, 2W) -> (N, C, H, W): the adjoint of
+    ``smooth_upsample_plain``, computed in g's dtype. Each step of the
+    forward transposed, in reverse order: the two valid blurs become
+    transposed convolutions, the replication pad folds its copies back onto
+    the edges, and the nearest x2 sums each 2x2 block."""
+    n, c, h2, w2 = g.shape
+    kv, kh = _taps(g)
+    g = F.conv_transpose2d(g, kh, groups=c)
+    g = F.conv_transpose2d(g, kv, groups=c)
+    g = _fold_replicate_pad(_fold_replicate_pad(g, 2), 3)
+    return g.reshape(n, c, h2 // 2, 2, w2 // 2, 2).sum(dim=(3, 5))
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,11 +85,17 @@ def _entry():
     return fn
 
 
-def smooth_upsample(x: torch.Tensor) -> torch.Tensor:
-    """The semantics of ``smooth_upsample_plain``; kernel B2 on a CUDA
-    tensor (contiguous NCHW, f32 or bf16, any C, H, W >= 1), the plain
-    version on a CPU one. ``smooth_upsample.launches`` counts the kernel's
-    launches."""
+@functools.lru_cache(maxsize=None)
+def _grad_entry():
+    fn = build.load("smooth_upsample_grad").sgfr_smooth_upsample_grad
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _upsample(x: torch.Tensor) -> torch.Tensor:
+    """Kernel B2 on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
         return smooth_upsample_plain(x)
     code = build.check_input("smooth_upsample", x)
@@ -62,4 +111,54 @@ def smooth_upsample(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def smooth_upsample_grad(g: torch.Tensor) -> torch.Tensor:
+    """The semantics of ``smooth_upsample_grad_plain``; kernel B2b on a
+    CUDA tensor (contiguous NCHW with even H, W >= 2, f32 or bf16, f32
+    accumulation), the plain version on a CPU one.
+    ``smooth_upsample_grad.launches`` counts the kernel's launches."""
+    if g.device.type == "cpu":
+        return smooth_upsample_grad_plain(g)
+    code = build.check_input("smooth_upsample_grad", g)
+    if (g.dim() != 4 or g.shape[2] < 2 or g.shape[3] < 2
+            or g.shape[2] % 2 or g.shape[3] % 2):
+        raise ValueError(f"smooth_upsample_grad: needs (N, C, 2H, 2W) with "
+                         f"H, W >= 1, got {tuple(g.shape)}")
+    n, c, h2, w2 = g.shape
+    dx = torch.empty((n, c, h2 // 2, w2 // 2), dtype=g.dtype, device=g.device)
+    rc = _grad_entry()(g.data_ptr(), dx.data_ptr(), n * c, h2 // 2, w2 // 2,
+                       code, torch.cuda.current_stream(g.device).cuda_stream)
+    build.raise_on_error("smooth_upsample_grad", rc)
+    smooth_upsample_grad.launches += 1
+    return dx
+
+
+class _SmoothUpsample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _upsample(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SmoothUpsampleGrad.apply(g)
+
+
+class _SmoothUpsampleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g):
+        return smooth_upsample_grad(g.contiguous())
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _SmoothUpsample.apply(gg.contiguous())
+
+
+def smooth_upsample(x: torch.Tensor) -> torch.Tensor:
+    """The semantics of ``smooth_upsample_plain``, differentiable: kernels
+    B2 forward and B2b backward on a CUDA tensor (contiguous NCHW, f32 or
+    bf16, any C, H, W >= 1), the plain versions on a CPU one.
+    ``smooth_upsample.launches`` counts B2's launches."""
+    return _SmoothUpsample.apply(x)
+
+
 smooth_upsample.launches = 0
+smooth_upsample_grad.launches = 0

@@ -1,10 +1,13 @@
-"""The port's inversion checkpoint: one ``torch.save`` file holding the
-state_dict, the out-of-band ``latent_avg`` and, when known, ``avg_image``
-((H, W, 3) in [-1, 1])."""
+"""The port's checkpoints. ``save_checkpoint``/``load_checkpoint``: one
+``torch.save`` file holding the state_dict, the out-of-band ``latent_avg``
+and, when known, ``avg_image`` ((H, W, 3) in [-1, 1]).
+``CheckpointManager``: the training runs' step-indexed files, which add
+the optimizer state and metadata to the same keys."""
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Dict, List, Optional
 
 import torch
 
@@ -28,3 +31,61 @@ def load_checkpoint(path: str, model: PSp) -> Optional[torch.Tensor]:
     with torch.no_grad():
         model.latent_avg.copy_(ckpt["latent_avg"])
     return ckpt.get("avg_image")
+
+
+def load_metadata(path: str) -> Dict:
+    """The ``metadata`` dict of a ``CheckpointManager`` file (memory-mapped:
+    the tensors are not read)."""
+    return torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True).get("metadata", {})
+
+
+class CheckpointManager:
+    """Step-indexed ``torch.save`` files under ``root``:
+    ``step_{step:09d}.pt``, the newest ``keep`` kept, and ``best.pt`` for
+    the lowest metric seen (recovered from an existing ``best.pt``, so a
+    resumed run cannot overwrite it with a worse model). Each file holds
+    the caller's payload plus ``metadata`` (``step``, ``metric`` when
+    given, and the caller's keys, such as ``preempted``). A payload with
+    ``state_dict`` and ``latent_avg`` also loads with
+    ``load_checkpoint``."""
+
+    def __init__(self, root: str, keep: int = 5):
+        self.root = root
+        self.keep = keep
+        os.makedirs(root, exist_ok=True)
+        self.best: Optional[float] = None
+        best = os.path.join(root, "best.pt")
+        if os.path.exists(best):
+            self.best = load_metadata(best).get("metric")
+
+    def step_path(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:09d}.pt")
+
+    def _write(self, path: str, payload: Dict) -> None:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+
+    def save(self, step: int, payload: Dict, metric: Optional[float] = None,
+             metadata: Optional[Dict] = None) -> str:
+        meta = dict(metadata or {}, step=int(step))
+        if metric is not None:
+            meta["metric"] = float(metric)
+        payload = dict(payload, metadata=meta)
+        path = self.step_path(step)
+        self._write(path, payload)
+        if metric is not None and (self.best is None or metric < self.best):
+            self.best = float(metric)
+            self._write(os.path.join(self.root, "best.pt"), payload)
+        for old in self._steps()[:-self.keep]:
+            os.remove(os.path.join(self.root, old))
+        return path
+
+    def _steps(self) -> List[str]:
+        return sorted(f for f in os.listdir(self.root)
+                      if f.startswith("step_") and f.endswith(".pt"))
+
+    def latest(self) -> Optional[str]:
+        steps = self._steps()
+        return os.path.join(self.root, steps[-1]) if steps else None

@@ -6,6 +6,9 @@ a child such as ``styles.3`` or ``blocks.0`` is one key there). The layout
 rules are those of the reference torch export:
 
   * ``nn.Conv2d`` and the synthesis/torgb conv weights: HWIO -> OIHW;
+    this covers ``losses.perceptual.LPIPS`` too: its trunk convolutions
+    (``net.0``, ``net.3``, ...) and its ``lin.{i}`` weights, (1, 1, C, 1)
+    -> (1, C, 1, 1);
   * ``FullyConnectedLayer`` / ``EqualLinear``: (out, in) kept;
   * ``SynthesisPrologue.const``: HWC -> CHW;
   * BatchNorm ``mean``/``var`` state -> ``running_mean``/``running_var``

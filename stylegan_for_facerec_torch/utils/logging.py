@@ -1,0 +1,86 @@
+"""Training logs: ``AverageMeter``, ``aggregate_loss_dicts`` and
+``MetricLogger`` (scalars as JSON lines, image grids as PNG), as
+``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb backend
+and profiler trace."""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+class AverageMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
+def aggregate_loss_dicts(agg_list: List[Dict]) -> Dict[str, float]:
+    """Mean per key over a list of loss dicts."""
+    acc = defaultdict(list)
+    for d in agg_list:
+        for k, v in d.items():
+            acc[k].append(float(v))
+    return {k: sum(v) / len(v) for k, v in acc.items()}
+
+
+class MetricLogger:
+    """Console lines plus ``log_dir/metrics.jsonl``; ``log_image`` writes
+    ``log_dir/<name>/<step>.png``. Close it (or use it as a context
+    manager) to close the file."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir
+        self._file = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def log(self, step: int, metrics: Dict, prefix: str = ""):
+        payload = {f"{prefix}{k}": float(v) for k, v in metrics.items()}
+        payload["step"] = int(step)
+        payload["time"] = time.time()
+        if self._file:
+            self._file.write(json.dumps(payload) + "\n")
+            self._file.flush()
+        line = " ".join(f"{k} {v:.5g}" for k, v in payload.items()
+                        if k not in ("step", "time"))
+        print(f"[step {step}] {line}", flush=True)
+
+    def log_image(self, name: str, image, step: int) -> Optional[str]:
+        """``image``: uint8 HWC array. Returns the written path (None
+        without a log_dir)."""
+        if not self.log_dir:
+            return None
+        from PIL import Image
+        path = os.path.join(self.log_dir, name, f"{step:04d}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(np.asarray(image)).save(path)
+        return path
+
+    def close(self):
+        if self._file:
+            self._file.close()
+            self._file = None
