@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times
+    python3 chip_smoke.py --b2-paths
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build kernels B1 (fused bias-act), B1b (its gradient), B2 (smooth 2x
@@ -11,16 +13,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
      every shape the inversion and training paths give it, in f32 and
      bf16: B1 forward, B1b through autograd (dx, db and the double
      backward, inputs scaled so the clamp saturates), B2 forward, B2b
-     through autograd;
+     through autograd; B1 and B2 also at ragged shapes and on a view at
+     storage offset 1 (their scalar and packing paths; B2 with its staging
+     in shared memory forced on and off). B1 must equal its plain version
+     bit for bit (in bf16: the plain version in f32, rounded once);
   3. inversion: full-width PSp(output_size=256, input_size=112) ReStyle
      inversion, seeded random weights, batch 8, 5 iterations, and check
      that it launched B1 13 and B2 12 times per iteration;
   4. run the same weights and inputs on the CPU (plain versions) at
      batch 2 for 2 iterations and compare with the card's result;
   5. time each kernel at its largest on-path shape beside its bound and
-     its plain version, and run_on_batch in images/s;
-  6. profile one bf16 batch-128 run_on_batch: device time by kernel and
-     the device's busy share;
+     its plain version; B1 and B2 at every shape of one bf16 batch-128
+     synthesis (13 B1 and 12 B2 launches), summed beside the summed bound;
+     run_on_batch in images/s;
+  6. profile one bf16 batch-128 run_on_batch: device time by kernel, B1's
+     and B2's totals, and the device's busy share;
   7. training: Stage2Coach on the same PSp(256) at input 112, L2 1.0 +
      LPIPS-alex 0.8 (seeded random LPIPS), Ranger lr 1e-4, one refinement
      iteration, 3 steps at batch 8 in f32 with TF32 off: finite losses,
@@ -37,10 +44,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the one before that the card's name and power
 limit as nvidia-smi reports them. Exits nonzero without a GPU.
+
+--kernel-times builds the kernels, times B1 and B2 at every shape one
+synthesis gives them at batch 8 and 128 in f32 and bf16, profiles one bf16
+batch-128 run_on_batch as phase 6 does, prints the times as one JSON line
+and stops. A copy of this file placed at the root of an older checkout
+(from the training slice on) times that checkout's kernels: run both
+checkouts in turns in one session to compare.
+
+--b2-paths builds the kernels and times B2 at every shape one synthesis
+gives it at batch 8 and 128 in f32 and bf16 on each of its paths, forced:
+staged in shared memory, and read straight from x (with the plan's
+unstaged tiles, and with tiles of at least one pass of rows). It checks
+that the paths' outputs are bit-equal, prints the times as one JSON line
+and stops: the measurement behind the wrapper's staging threshold.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -56,7 +78,7 @@ from stylegan_for_facerec_torch.losses.perceptual import LPIPS
 from stylegan_for_facerec_torch.models.psp import build_psp
 from stylegan_for_facerec_torch.models.stylegan2_ada import channels_for
 from stylegan_for_facerec_torch.nn.initializers import init_weights
-from stylegan_for_facerec_torch.ops import build
+from stylegan_for_facerec_torch.ops import build, resample
 from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
                                                       bias_act_grad_plain,
                                                       bias_act_plain)
@@ -92,6 +114,14 @@ B2_FLOPS_PER_INPUT = 30       # 3 x 6 vertical + 2 x 6 horizontal
 B2B_FLOPS_PER_INPUT = 60      # 5 rows x 5 multiply-adds + 5 row weights
 KERNELS = ("bias_act", "bias_act_grad", "smooth_upsample",
            "smooth_upsample_grad")
+# shapes that reach B1's and B2's scalar and packing paths: HW = 63,
+# (N, C) input, 1 x 1 planes, odd W, H and W past a tile's edge; B2's last
+# two have rows that start 16-byte aligned, so B2 can stage them
+B1_RAGGED = [(3, 5, 7, 9), (8, 512), (2, 3, 1, 1)]
+B2_RAGGED = [(2, 3, 1, 1), (1, 2, 1, 7), (2, 5, 3, 9), (1, 64, 130, 66),
+             (1, 64, 130, 136), (2, 64, 67, 72)]
+PROFILE_NAMES = {"bias_act": "fused_bias_act_kernel",
+                 "smooth_upsample": "smooth_upsample_kernel"}
 SQRT2 = math.sqrt(2.0)
 
 
@@ -104,30 +134,80 @@ def log(msg: str):
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def on_path_shapes():
+def on_path_shapes(batch: int = BATCH):
     """(B1 shapes, B2 shapes) that one inversion iteration or train step
-    gives the kernels at batch BATCH, NCHW (B1b takes B1's, B2b's output
-    is B2's input)."""
+    gives the kernels, NCHW (B1b takes B1's, B2b's output is B2's input).
+    B1 runs once at 4x4 and twice at each larger resolution (13 launches),
+    B2 once at each of its 12 shapes."""
     res = [2 ** i for i in range(2, int(math.log2(OUTPUT_SIZE)) + 1)]
     ch = channels_for(res)
-    b1 = [(BATCH, ch[r], r, r) for r in res]
-    b2 = [(BATCH, ch[r], r // 2, r // 2) for r in res[1:]]
-    b2 += [(BATCH, 3, r // 2, r // 2) for r in res[1:]]
+    b1 = [(batch, ch[r], r, r) for r in res]
+    b2 = [(batch, ch[r], r // 2, r // 2) for r in res[1:]]
+    b2 += [(batch, 3, r // 2, r // 2) for r in res[1:]]
     return b1, b2
 
 
+def b1_launches(shape) -> int:
+    return 1 if shape[2] == 4 else 2
+
+
+def offset_view(shape, dtype, gen, scale: float = 1.0):
+    """A contiguous tensor of ``shape`` at storage offset 1: its data
+    pointer is not 16-byte aligned, and the kernels' checks take it."""
+    flat = (torch.randn(math.prod(shape) + 1, generator=gen, device="cuda")
+            * scale).to(dtype)
+    return flat[1:].view(shape)
+
+
+@contextlib.contextmanager
+def b2_forced(staged, whole_pass: bool = False):
+    """B2's launch plans with its staging forced on (``staged`` True:
+    wherever the rows are 16-byte aligned) or off (False: tiles down to a
+    quarter pass of rows, as the plan has them, or down to one whole pass
+    with ``whole_pass``); None leaves the plan as it is."""
+    old = resample._STAGE_MIN_BYTES, resample._UNSTAGED_SPLIT
+    if staged is not None:
+        resample._STAGE_MIN_BYTES = 0 if staged else 1 << 62
+    if whole_pass:
+        resample._UNSTAGED_SPLIT = 1
+    resample._launch_args.cache_clear()
+    try:
+        yield
+    finally:
+        resample._STAGE_MIN_BYTES, resample._UNSTAGED_SPLIT = old
+        resample._launch_args.cache_clear()
+
+
+def b2_staged(x) -> bool:
+    """Whether B2's plan stages ``x`` in shared memory."""
+    return bool(resample._plan(tuple(x.shape), x.element_size(),
+                               x.data_ptr() % 16, 0,
+                               build.sm_count(x.device.index))["staged"])
+
+
 def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``reps`` calls
+    that run back to back. The device first sleeps while the host queues
+    them, so the host's time per call (Python, the wrapper, the launch)
+    stays out of the reading; if the sleep ended before the host was done,
+    it is doubled and the reading taken again."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 1 << 24
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time or cycles >= 1 << 32:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
 
 
 def phase_build():
@@ -216,42 +296,61 @@ def phase_compare(gen):
     errs = {(k, d): 0.0 for k in KERNELS for d in DTYPES}
     for dname, dtype in DTYPES.items():
         compare_grads(gen, dname, dtype, b1_shapes, b2_shapes, errs)
-        for shape in b1_shapes:
-            x = (torch.randn(shape, generator=gen, device="cuda")
-                 * 200).to(dtype)
+        bits = torch.int32 if dname == "f32" else torch.int16
+        for shape, offset in ([(s, 0) for s in b1_shapes + B1_RAGGED]
+                              + [(max(b1_shapes, key=math.prod), 1)]):
+            x = (offset_view(shape, dtype, gen, 200) if offset else
+                 (torch.randn(shape, generator=gen, device="cuda")
+                  * 200).to(dtype))
             b = torch.randn(shape[1], generator=gen, device="cuda")
-            got = bias_act(x, b, "lrelu", 1.0, 256.0).float()
-            want = bias_act_plain(x, b, "lrelu", 1.0, 256.0).float()
-            err = (got - want).abs()
-            if dname == "f32":   # the same f32 operations in the same order
-                tol = 1e-6 * want.abs() + 1e-6
-            else:                # the plain version rounds the bias and each
-                # step to bf16, the kernel once: 4 ulps of the operands
-                tol = 2.0 ** -6 * math.sqrt(2) * (x.float().abs()
-                                                  + b.abs()[:, None, None])
-            if not bool((err <= tol).all()):
-                fail(f"B1 {dname} {shape}: max err {err.max().item():.3e}")
-            errs[("bias_act", dname)] = max(errs[("bias_act", dname)],
-                                            err.max().item())
-        for shape in b2_shapes:
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            got = smooth_upsample(x).float()
+            got = bias_act(x, b, "lrelu", 1.0, 256.0)
+            # the same f32 operations in the same order, one rounding
+            want = bias_act_plain(x.float(), b, "lrelu", 1.0,
+                                  256.0).to(dtype)
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got.view(bits), want.view(bits)):
+                fail(f"B1 {dname} {shape} offset {offset}: not bit-equal "
+                     f"to the plain version, max err {err:.3e}")
+            errs[("bias_act", dname)] = max(errs[("bias_act", dname)], err)
+        # path shapes as the plan has them; ragged shapes and the offset
+        # view with the staging forced on and off
+        staged = 0
+        for shape, offset, force in (
+                [(s, 0, None) for s in b2_shapes]
+                + [(s, 0, f) for s in B2_RAGGED for f in (True, False)]
+                + [(max(b2_shapes, key=math.prod), 1, f)
+                   for f in (True, False)]):
+            x = (offset_view(shape, dtype, gen) if offset else
+                 torch.randn(shape, generator=gen, device="cuda").to(dtype))
+            with b2_forced(force):
+                got = smooth_upsample(x).float()
+                took = b2_staged(x)
+            if force is not None and took != (
+                    force and not offset and shape[3] * x.element_size()
+                    % 16 == 0):
+                fail(f"B2 {dname} {shape} offset {offset}: staging forced "
+                     f"{force}, the plan staged {took}")
+            staged += took
             want = smooth_upsample_plain(x).float()
             err = (got - want).abs()
             scale = x.float().abs().max().item()
             # f32: taps summed in another order; bf16: the plain version
             # rounds after each 1-D pass, the kernel once (2 ulps)
             tol = (2e-6 if dname == "f32" else 2.0 ** -7) * scale
-            if err.max().item() > tol:
-                fail(f"B2 {dname} {shape}: max err {err.max().item():.3e}"
-                     f" > {tol:.3e}")
+            if not err.max().item() <= tol:
+                fail(f"B2 {dname} {shape} offset {offset}: max err "
+                     f"{err.max().item():.3e} > {tol:.3e}")
             errs[("smooth_upsample", dname)] = max(
                 errs[("smooth_upsample", dname)], err.max().item())
+        if staged < 3:
+            fail(f"B2 {dname}: only {staged} checks went through the staging")
     torch.cuda.synchronize()
     log(f"phase 2: kernels agree with their plain versions at "
         f"{len(b1_shapes)} B1/B1b and {len(b2_shapes)} B2/B2b shapes (the "
         f"inversion and training paths' at batch {BATCH}) in f32 and "
-        f"bf16; max abs err " + ", ".join(
+        f"bf16, B1 bit for bit; B1 and B2 also at "
+        f"{len(B1_RAGGED)} and {len(B2_RAGGED)} ragged shapes and at "
+        f"storage offset 1 (B2 staged and not); max abs err " + ", ".join(
             f"{k}/{d}={v:.3e}" for (k, d), v in errs.items()))
     return errs
 
@@ -359,6 +458,53 @@ def kernel_timings(gen):
     return rows
 
 
+def path_times(gen, batch: int, dtype) -> dict:
+    """B1 and B2 at each shape one synthesis gives them at ``batch``:
+    ``{kernel: [{shape, launches, ms, bound_ms}]}``, launches per synthesis;
+    the bound as in ``kernel_timings``."""
+    elem = torch.finfo(dtype).bits // 8
+    b1_shapes, b2_shapes = on_path_shapes(batch)
+    out = {"bias_act": [], "smooth_upsample": []}
+    for shape in b1_shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(shape[1], generator=gen, device="cuda")
+        n = x.numel()
+        out["bias_act"].append(dict(
+            shape=list(shape), launches=b1_launches(shape),
+            ms=cuda_time_ms(lambda: bias_act(x, b, "lrelu", 1.0, 256.0)),
+            bound_ms=max((2 * n * elem + 4 * b.numel()) / HBM_BYTES_PER_S,
+                         B1_FLOPS_PER_ELEM * n / F32_FLOPS_PER_S) * 1e3))
+    for shape in b2_shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        n = x.numel()
+        out["smooth_upsample"].append(dict(
+            shape=list(shape), launches=1,
+            ms=cuda_time_ms(lambda: smooth_upsample(x)),
+            bound_ms=max(5 * n * elem / HBM_BYTES_PER_S,
+                         B2_FLOPS_PER_INPUT * n / F32_FLOPS_PER_S) * 1e3))
+    del x
+    return out
+
+
+def path_sums(times: dict) -> dict:
+    """``{kernel: (path_ms, path_bound_ms)}``: each summed over one
+    synthesis's launches."""
+    return {k: (sum(r["launches"] * r["ms"] for r in rows),
+                sum(r["launches"] * r["bound_ms"] for r in rows))
+            for k, rows in times.items()}
+
+
+def log_path_times(label: str, times: dict):
+    for k, rows in times.items():
+        for r in rows:
+            log(f"{label}: {k} {tuple(r['shape'])} x{r['launches']}: "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_ms'] / r['ms']:.1%})")
+    for k, (ms, bound) in path_sums(times).items():
+        log(f"{label}: {k} over one synthesis: {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound / ms:.1%} of the bound)")
+
+
 def inversion_rate(model, batch: int, dtype) -> float:
     m = model if dtype == torch.float32 else copy.deepcopy(model).to(dtype)
     x, avg = make_inputs(batch, seed=1)
@@ -375,9 +521,10 @@ def inversion_rate(model, batch: int, dtype) -> float:
     return batch * reps / (time.perf_counter() - t0)
 
 
-def profile_breakdown(label: str, fn, top: int = 12):
+def profile_breakdown(label: str, fn, top: int = 12) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's busy share of that call's wall time."""
+    the device's busy share of that call's wall time. Returns B1's and
+    B2's device ms and launches in that call."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                              # warm-up
     torch.cuda.synchronize()
@@ -397,7 +544,7 @@ def profile_breakdown(label: str, fn, top: int = 12):
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if dev_ms <= 0:
         log(f"{label}: the profiler recorded no device time")
-        return
+        return {}
     log(f"{label}: device busy {dev_ms:.1f} ms of {wall_ms:.1f} ms wall "
         f"({dev_ms / wall_ms:.1%})")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
@@ -406,6 +553,14 @@ def profile_breakdown(label: str, fn, top: int = 12):
     for e in spans:
         log(f"  annotated span {e.key}: {e.device_time_total / 1e3:.2f} ms "
             f"of device time inside it")
+    totals = {}
+    for k, name in PROFILE_NAMES.items():
+        mine = [e for e in kern if name in e.key]
+        totals[k] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                     sum(e.count for e in mine))
+        log(f"  {k} ({name}): {totals[k][0]:.2f} ms over {totals[k][1]} "
+            f"launches, {totals[k][0] / dev_ms:.1%} of device time")
+    return totals
 
 
 def make_coach(device: str, compute_dtype: str = "float32") -> Stage2Coach:
@@ -597,6 +752,8 @@ def main():
     outs, lats, inv_launches = phase_main_path(model)
     phase_cpu_reference(model, outs, lats)
     timings = kernel_timings(gen)
+    path = path_times(gen, 128, torch.bfloat16)
+    log_path_times("phase 5: bf16 batch 128", path)
     rates = {}
     # "tf32": f32 tensors with cuDNN's TF32 convolutions, PyTorch's default
     for dname, dtype, tf32 in (("f32", torch.float32, False),
@@ -613,7 +770,7 @@ def main():
                   for t in make_inputs(128, seed=2))
     profile_breakdown("phase 6: profile of run_on_batch bf16 batch 128",
                       lambda: run_on_batch(m16, x16, avg16, ITERS))
-    del model, m16, outs, lats
+    del model, m16, outs, lats, x16, avg16
 
     coach = make_coach("cuda")
     coach.estimate_latent_avg(torch.Generator(device="cuda").manual_seed(1),
@@ -642,6 +799,7 @@ def main():
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
+    sums = path_sums(path)
     for name, (src, replaces) in SOURCES.items():
         r, rb = timings[(name, "f32")], timings[(name, "bf16")]
         kernels.append({
@@ -657,6 +815,8 @@ def main():
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
+        if name in sums:   # bf16, one synthesis at batch 128
+            kernels[-1]["path_ms"], kernels[-1]["path_bound_ms"] = sums[name]
     print(json.dumps({"inversion_images_per_s": {
         f"{d}_batch{b}": v for (d, b), v in rates.items()},
         "train": train_rates}))
@@ -667,5 +827,79 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def kernel_times_main():
+    """``--kernel-times``: B1 and B2 at every path shape, and the phase-6
+    profile, for a comparison between two checkouts in one session."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on the GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    phase_build()
+    result = {}
+    for batch in (BATCH, 128):
+        for dname, dtype in DTYPES.items():
+            times = path_times(gen, batch, dtype)
+            log_path_times(f"{dname} batch {batch}", times)
+            result[f"{dname}_batch{batch}"] = times
+    model = build_psp(OUTPUT_SIZE, INPUT_SIZE, seed=0, device="cuda").to(
+        torch.bfloat16)
+    x16, avg16 = (t.cuda().to(torch.bfloat16)
+                  for t in make_inputs(128, seed=2))
+    result["profile"] = profile_breakdown(
+        "profile of run_on_batch bf16 batch 128",
+        lambda: run_on_batch(model, x16, avg16, ITERS))
+    print(nvidia_smi_line())
+    print(json.dumps({"kernel_times": result}))
+
+
+def b2_paths_main():
+    """``--b2-paths``: B2 at every path shape on each of its paths. Per
+    shape the readings run direct, direct whole-pass, staged, staged,
+    direct whole-pass, direct, so each path has two."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on the GPU")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    phase_build()
+    paths = (("direct", False, False), ("whole_pass", False, True),
+             ("staged", True, False))
+    rows = []
+    for batch in (BATCH, 128):
+        for dname, dtype in DTYPES.items():
+            for shape in on_path_shapes(batch)[1]:
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                row = {"dtype": dname, "shape": list(shape),
+                       "bytes": x.numel() * x.element_size(),
+                       "plan_staged": b2_staged(x)}
+                outs = {}
+                for name, staged, whole in paths + paths[::-1]:
+                    with b2_forced(staged, whole):
+                        if staged and not b2_staged(x):
+                            row[name] = None     # rows not 16-byte aligned
+                            continue
+                        outs[name] = smooth_upsample(x)
+                        row.setdefault(name, []).append(
+                            cuda_time_ms(lambda: smooth_upsample(x)))
+                for name, y in outs.items():
+                    if not torch.equal(y, outs["direct"]):
+                        fail(f"B2 {dname} {shape}: {name} and direct differ")
+                log(f"{dname} {shape} {row['bytes']} B (plan: "
+                    f"{'staged' if row['plan_staged'] else 'direct'}): "
+                    + ", ".join(f"{n} " + ("n/a" if row[n] is None else
+                                           " ".join(f"{1e3 * v:.3f}"
+                                                    for v in row[n]))
+                                for n, _, _ in paths) + " us")
+                rows.append(row)
+    print(nvidia_smi_line())
+    print(json.dumps({"b2_paths": rows}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--kernel-times"]:
+        kernel_times_main()
+    elif sys.argv[1:] == ["--b2-paths"]:
+        b2_paths_main()
+    elif sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}")
+    else:
+        main()

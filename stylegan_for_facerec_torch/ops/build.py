@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles into its own
-shared library for ``sm_90a``. A library is named by a hash of its source,
-so an edited source builds anew and an unchanged one is reused. Libraries
+shared library for ``sm_90a``. A library is named by a hash of its source
+and of the headers the sources share (``csrc/*.cuh``), so an edited source
+or header builds anew and an unchanged one is reused. Libraries
 go to ``build/`` beside this file (listed in ``.gitignore``); a kernel is
 built at its first use, or up front, all sources in parallel, by
 ``build_all``. Nothing is built or loaded at import time.
@@ -11,12 +12,13 @@ built at its first use, or up front, all sources in parallel, by
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -37,9 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -76,6 +79,13 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the launch plans
+    size their grids to fill them."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -94,6 +104,15 @@ def check_input(op: str, x: torch.Tensor, *others: torch.Tensor) -> int:
         if t.device != x.device:
             raise ValueError(f"{op}: operands on {t.device} and {x.device}")
     return _DTYPE_CODES[x.dtype]
+
+
+def fastdiv(d: int) -> Tuple[int, int]:
+    """(magic, shift) for ``csrc/common.cuh``'s ``FastDiv``, which divides
+    0 <= n < 2**31 by d as ``(umulhi(n, magic) + n) >> shift``."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"fastdiv: divisor {d} outside [1, 2**31)")
+    shift = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
 
 
 def raise_on_error(op: str, code: int) -> None:

@@ -1,5 +1,5 @@
 // Kernel B1: fused bias + leaky ReLU + gain + clamp over a contiguous NCHW
-// tensor (or (N, C)), f32 or bf16, any C.
+// tensor (or (N, C)), f32 or bf16, any C and any H * W.
 //
 //   y = clip(lrelu(x + b[c], slope) * gain, -clamp, clamp)
 //
@@ -7,67 +7,133 @@
 // stylegan_for_facerec_tpu/ops/fused_act.py::fused_bias_act_pallas.
 // Bound on Hopper: bytes. One read of x and one write of y
 // (2 * numel * elem bytes); the arithmetic is ~5 f32 operations per element.
-// Design: one grid-stride pass, one element per thread per step, math in
-// f32, the per-channel bias read through the L1 cache (it is C floats).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+//
+// What the design does about it. The tensor is read as (planes = N * C, HW).
+// - No division per element: where HW is at least a block's chunk, a block
+//   walks one contiguous chunk of one plane; one 32-bit divide by the chunks
+//   per plane gives its plane, a multiply-high its channel, and the bias is
+//   read once into a register. Where HW is smaller, a block covers whole
+//   planes, and each vector finds its plane and channel by multiply-high and
+//   shift with host-computed magic numbers (common.cuh).
+// - Bytes in flight: each thread loads kUnroll 16-byte vectors (8 bf16 or 4
+//   f32 values) before it computes and stores any, 64 bytes a thread, so a
+//   resident SM keeps tens of KB of loads outstanding. The vector path needs
+//   16-byte aligned x and y and HW a multiple of the vector width; the
+//   wrapper (ops/fused_act.py::_plan) checks both and otherwise launches the
+//   scalar instance (ragged HW, a view at an odd storage offset).
+// - One block per chunk, no grid-stride loop: at the largest path shape a
+//   launch is ~4 waves of 256-thread blocks over 132 SMs.
+// The arithmetic is unchanged, in f32 with one rounding on store, so the
+// output equals the plain version in f32 bit for bit (in bf16: the plain
+// version run in f32, rounded once).
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using sgfr::FastDiv;
+using sgfr::Pack;
 
-template <typename T>
-__global__ void fused_bias_act_kernel(const T* __restrict__ x,
-                                      const float* __restrict__ bias,
-                                      T* __restrict__ y, int64_t n,
-                                      int64_t hw, int c, float slope,
-                                      float gain, float clamp) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int ch = (int)((i / hw) % c);
-    float v = load_f32(x + i) + __ldg(bias + ch);
-    v = (v >= 0.f ? v : v * slope) * gain;
-    if (clamp >= 0.f) v = fminf(fmaxf(v, -clamp), clamp);
-    store_f32(y + i, v);
+constexpr int kThreads = 256;  // ops/fused_act.py::_THREADS
+constexpr int kUnroll = 4;     // ops/fused_act.py::_UNROLL
+
+template <typename T, int VEC, bool PACKED>
+__global__ void __launch_bounds__(kThreads) fused_bias_act_kernel(
+    const T* __restrict__ x, const float* __restrict__ bias,
+    T* __restrict__ y, unsigned planes, unsigned hw, unsigned c,
+    unsigned per_block, FastDiv hw_div, FastDiv c_div, float slope,
+    float gain, float clamp) {
+  constexpr unsigned kChunk = kThreads * VEC * kUnroll;
+  using V = Pack<T, VEC>;
+  unsigned plane, len;
+  size_t base;
+  float b = 0.f;
+  if (PACKED) {  // per_block whole planes, per_block * hw <= kChunk
+    plane = blockIdx.x * per_block;
+    len = min(per_block, planes - plane) * hw;
+    base = (size_t)plane * hw;
+  } else {       // chunk blockIdx.x % per_block of one plane
+    plane = blockIdx.x / per_block;
+    const unsigned off = (blockIdx.x - plane * per_block) * kChunk;
+    len = min(kChunk, hw - off);
+    base = (size_t)plane * hw + off;
+    b = __ldg(bias + (plane - c * c_div.div(plane)));
+  }
+  V v[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const unsigned i = (u * kThreads + threadIdx.x) * VEC;
+    if (i < len) v[u] = *reinterpret_cast<const V*>(x + base + i);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const unsigned i = (u * kThreads + threadIdx.x) * VEC;
+    if (i >= len) break;
+    if (PACKED) {  // a vector lies in one plane: hw % VEC == 0
+      const unsigned p = plane + hw_div.div(i);
+      b = __ldg(bias + (p - c * c_div.div(p)));
+    }
+    V o;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      float t = sgfr::to_f32(v[u].v[k]) + b;
+      t = (t >= 0.f ? t : t * slope) * gain;
+      if (clamp >= 0.f) t = fminf(fmaxf(t, -clamp), clamp);
+      o.v[k] = sgfr::from_f32<T>(t);
+    }
+    *reinterpret_cast<V*>(y + base + i) = o;
   }
 }
 
-template <typename T>
-int launch(const void* x, const float* bias, void* y, int64_t n, int64_t hw,
-           int c, float slope, float gain, float clamp, cudaStream_t stream) {
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  // 132 SMs x 16 resident blocks of 256 threads; beyond that the loop strides
-  const int64_t max_blocks = 132 * 16;
-  if (blocks > max_blocks) blocks = max_blocks;
-  fused_bias_act_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), bias, static_cast<T*>(y), n, hw, c, slope,
-      gain, clamp);
+template <typename T, int VEC, bool PACKED>
+int launch(const void* x, const float* bias, void* y, unsigned planes,
+           unsigned hw, unsigned c, unsigned per_block, unsigned blocks,
+           FastDiv hw_div, FastDiv c_div, float slope, float gain,
+           float clamp, cudaStream_t stream) {
+  fused_bias_act_kernel<T, VEC, PACKED><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), bias, static_cast<T*>(y), planes, hw, c,
+      per_block, hw_div, c_div, slope, gain, clamp);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch(int packed, const void* x, const float* bias, void* y,
+           unsigned planes, unsigned hw, unsigned c, unsigned per_block,
+           unsigned blocks, FastDiv hw_div, FastDiv c_div, float slope,
+           float gain, float clamp, cudaStream_t stream) {
+  if (packed)
+    return launch<T, VEC, true>(x, bias, y, planes, hw, c, per_block, blocks,
+                                hw_div, c_div, slope, gain, clamp, stream);
+  return launch<T, VEC, false>(x, bias, y, planes, hw, c, per_block, blocks,
+                               hw_div, c_div, slope, gain, clamp, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. clamp < 0 means no clamp.
+// The launch plan comes from ops/fused_act.py::_plan. dtype: 0 = float32,
+// 1 = bfloat16; vec: 1 (scalar) or 16 / elem; packed: per_block counts
+// whole planes (1) or chunks of one plane (0); clamp < 0 means no clamp.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int sgfr_fused_bias_act(const void* x, const float* bias, void* y,
-                                   long long n, long long hw, int c,
-                                   int dtype, float slope, float gain,
-                                   float clamp, void* stream) {
-  if (n <= 0) return 0;
+extern "C" int sgfr_fused_bias_act(
+    const void* x, const float* bias, void* y, unsigned planes, unsigned hw,
+    unsigned c, int dtype, int vec, int packed, unsigned per_block,
+    unsigned blocks, unsigned hw_magic, unsigned hw_shift, unsigned c_magic,
+    unsigned c_shift, float slope, float gain, float clamp, void* stream) {
+  if (blocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, bias, y, n, hw, c, slope, gain, clamp, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, bias, y, n, hw, c, slope, gain, clamp, s);
+  const FastDiv hw_div{hw_magic, hw_shift}, c_div{c_magic, c_shift};
+  if (dtype == 0 && vec == 4)
+    return launch<float, 4>(packed, x, bias, y, planes, hw, c, per_block,
+                            blocks, hw_div, c_div, slope, gain, clamp, s);
+  if (dtype == 0 && vec == 1)
+    return launch<float, 1>(packed, x, bias, y, planes, hw, c, per_block,
+                            blocks, hw_div, c_div, slope, gain, clamp, s);
+  if (dtype == 1 && vec == 8)
+    return launch<__nv_bfloat16, 8>(packed, x, bias, y, planes, hw, c,
+                                    per_block, blocks, hw_div, c_div, slope,
+                                    gain, clamp, s);
+  if (dtype == 1 && vec == 1)
+    return launch<__nv_bfloat16, 1>(packed, x, bias, y, planes, hw, c,
+                                    per_block, blocks, hw_div, c_div, slope,
+                                    gain, clamp, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,41 @@
+// Pieces shared by kernels B1 (bias_act.cu) and B2 (smooth_upsample.cu).
+#pragma once
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace sgfr {
+
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 by one multiply-high and a
+// shift. The host computes the pair (ops/build.py::fastdiv):
+//   shift = ceil(log2 d),  magic = floor(2^32 (2^shift - d) / d) + 1
+// umulhi(n, magic) <= n, so the sum stays below 2^32.
+struct FastDiv {
+  unsigned magic;
+  unsigned shift;
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return (__umulhi(n, magic) + n) >> shift;
+  }
+};
+
+// N values of T moved by one load or store of N * sizeof(T) bytes (16 for
+// the vector paths); the address must be aligned to that size.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+}  // namespace sgfr

@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -78,10 +78,9 @@ def bias_act_grad_plain(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("bias_act").sgfr_fused_bias_act
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_uint] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.c_uint] * 6
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -106,14 +105,54 @@ def _check_bias(op: str, x: torch.Tensor, bias: torch.Tensor) -> int:
     return code
 
 
+_THREADS, _UNROLL = 256, 4   # bias_act.cu's kThreads and kUnroll
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shape, elem: int, x_ptr: int, y_ptr: int,
+          sms: int) -> Tuple[int, ...]:
+    """Kernel B1's launch for a contiguous x of ``shape`` read as (planes,
+    hw) on a card of ``sms`` SMs: ``(vec, packed, per_block, blocks)``
+    and the (magic, shift) pairs of hw and C. The pointers count only modulo 16 (the wrapper passes
+    them so, to hit the cache). 16-byte vectors (``vec = 16 // elem``
+    values) only where both pointers are 16-byte aligned and hw is a
+    multiple of vec, else the scalar path (vec 1). A chunk is
+    ``_THREADS * vec * _UNROLL`` elements: a plane of at least one chunk is
+    cut into chunks, one block each (packed 0, per_block = chunks per
+    plane); smaller planes go whole to a block, up to a chunk's worth and
+    no more than spreads them over the SMs (packed 1, per_block =
+    planes per block)."""
+    hw = math.prod(shape[2:])
+    planes = math.prod(shape) // hw if hw else 0
+    vec = 16 // elem
+    if x_ptr % 16 or y_ptr % 16 or hw % vec:
+        vec = 1
+    chunk = _THREADS * vec * _UNROLL
+    if hw >= chunk:
+        per_block = -(-hw // chunk)
+        packed, blocks = 0, planes * per_block
+    else:
+        per_block = max(1, min(chunk // hw, -(-planes // sms)))
+        packed, blocks = 1, -(-planes // per_block)
+    if planes >= 2 ** 31 or blocks >= 2 ** 31:
+        raise ValueError(f"bias_act: {tuple(shape)} is too large for B1")
+    return (vec, packed, per_block, blocks, *build.fastdiv(hw),
+            *build.fastdiv(shape[1]))
+
+
 def _forward(x: torch.Tensor, bias: torch.Tensor, slope: float, gain: float,
              clamp: Optional[float]) -> torch.Tensor:
     """Kernel B1 on a CUDA tensor; ``gain``/``clamp`` are the totals."""
     code = _check_bias("bias_act", x, bias)
     b = bias.detach().to(torch.float32).contiguous()
     y = torch.empty_like(x)
-    rc = _entry()(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(),
-                  math.prod(x.shape[2:]), x.shape[1], code, slope, gain,
+    if x.numel() == 0:
+        return y
+    hw = math.prod(x.shape[2:])
+    plan = _plan(x.shape, x.element_size(), x.data_ptr() % 16,
+                 y.data_ptr() % 16, build.sm_count(x.device.index))
+    rc = _entry()(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // hw,
+                  hw, x.shape[1], code, *plan, slope, gain,
                   -1.0 if clamp is None else clamp,
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error("bias_act", rc)

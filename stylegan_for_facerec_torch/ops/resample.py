@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -79,8 +80,10 @@ def smooth_upsample_grad_plain(g: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("smooth_upsample").sgfr_smooth_upsample
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
+                   + [ctypes.c_int, ctypes.c_uint] + [ctypes.c_int] * 6
+                   + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,6 +97,90 @@ def _grad_entry():
     return fn
 
 
+_THREADS = 256              # smooth_upsample.cu's kThreads
+_TILE_W = 128               # input columns of a tile
+_SMEM_BYTES = 40 * 1024     # a tile's shared memory, under the 48 KB static
+_STAGE_MIN_BYTES = 1 << 23  # smaller inputs are not staged
+_UNSTAGED_SPLIT = 4         # an unstaged tile may be 1/4 of a pass's rows
+
+
+def _ceil_log2(v: int) -> int:
+    return (v - 1).bit_length()
+
+
+def _plan(shape, elem: int, x_ptr: int, y_ptr: int,
+          sms: int) -> Dict[str, int]:
+    """Kernel B2's launch for a contiguous (N, C, H, W) input on a card of
+    ``sms`` SMs; the pointers count only modulo 16.
+
+    A block owns ``tile_rows`` rows of the (N*C*H, W) stack of planes times
+    ``tile_w`` columns; grid ``(row_tiles, col_tiles)``. Where a plane has
+    at most ``tile_rows`` rows, a tile is whole planes (``tile_rows`` a
+    multiple of H); else ``tiles_per_plane`` tiles cut each plane. Threads
+    take 8 bytes of columns each (``cols``: 4 bf16 or 2 f32), ``1 <<
+    lg_nq`` such groups a row, ``_THREADS >> lg_nq`` rows a pass, up to 4
+    passes, fewer where that leaves SMs without two blocks each: down to
+    one pass staged, and down to a quarter of one unstaged, where the time
+    is latency and more SMs share it.
+
+    ``staged``: the tile's rows go through shared memory in 16-byte
+    cp.async chunks, ``1 << lg_chunks`` chunk slots a row, at shared column
+    16 / elem of a row of ``pitch`` elements. Only an input of at least
+    ``_STAGE_MIN_BYTES`` whose rows all start 16-byte aligned is staged;
+    the threads of any other read x directly, which measured as fast or
+    faster below that size on the H100 (``PERF.md``). ``vec_store``: every
+    output row is 16-byte aligned."""
+    n, c, h, w = shape
+    planes = n * c
+    tile_w = min(w, _TILE_W)
+    cols = 8 // elem
+    nq = -(-tile_w // cols)
+    lg_nq = _ceil_log2(nq)
+    rows_per_pass = _THREADS >> lg_nq
+    col_tiles = -(-w // tile_w)
+
+    def tiling(budget):
+        if h <= budget:
+            per = min(budget // h, planes)
+            return per * h, 1, -(-planes // per)
+        return budget, -(-h // budget), planes * -(-h // budget)
+
+    budget = 4 * rows_per_pass
+    staged = (planes * h * w * elem >= _STAGE_MIN_BYTES and x_ptr % 16 == 0
+              and w * elem % 16 == 0)
+    if staged:
+        pad = 16 // elem
+        pitch = -(-(pad + cols * nq + 1) // pad) * pad
+        budget = min(budget, _SMEM_BYTES // (pitch * elem) - 2)
+        least = rows_per_pass
+    else:
+        pitch = 0
+        least = max(1, rows_per_pass // _UNSTAGED_SPLIT)
+    while (tiling(budget)[2] * col_tiles < 2 * sms
+           and budget // 2 >= least):
+        budget //= 2
+    tile_rows, tiles_per_plane, row_tiles = tiling(budget)
+    if row_tiles >= 2 ** 31 or col_tiles >= 2 ** 16:
+        raise ValueError(f"smooth_upsample: {tuple(shape)} is too large "
+                         f"for B2")
+    return dict(row_tiles=row_tiles, col_tiles=col_tiles,
+                tile_rows=tile_rows, tiles_per_plane=tiles_per_plane,
+                tile_w=tile_w, cols=cols, lg_nq=lg_nq,
+                lg_chunks=_ceil_log2(tile_w * elem // 16) if staged else 0,
+                staged=int(staged), pitch=pitch,
+                vec_store=int(y_ptr % 16 == 0 and 2 * w * elem % 16 == 0))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(shape, elem: int, x_off: int, y_off: int, sms: int):
+    """``_plan`` as the C function's arguments after the dtype."""
+    p = _plan(shape, elem, x_off, y_off, sms)
+    return (p["row_tiles"], p["col_tiles"], p["tile_rows"],
+            p["tiles_per_plane"], p["tile_w"], p["lg_nq"], p["lg_chunks"],
+            p["staged"], p["pitch"], p["vec_store"],
+            *build.fastdiv(shape[2]))
+
+
 def _upsample(x: torch.Tensor) -> torch.Tensor:
     """Kernel B2 on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
@@ -104,7 +191,12 @@ def _upsample(x: torch.Tensor) -> torch.Tensor:
                          f"1, got {tuple(x.shape)}")
     n, c, h, w = x.shape
     y = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return y
     rc = _entry()(x.data_ptr(), y.data_ptr(), n * c, h, w, code,
+                  *_launch_args(x.shape, x.element_size(), x.data_ptr() % 16,
+                                y.data_ptr() % 16,
+                                build.sm_count(x.device.index)),
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error("smooth_upsample", rc)
     smooth_upsample.launches += 1
