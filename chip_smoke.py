@@ -13,21 +13,23 @@ Phases, each fatal on failure (nonzero exit, no result line):
      every shape the inversion and training paths give it, in f32 and
      bf16: B1 forward, B1b through autograd (dx, db and the double
      backward, inputs scaled so the clamp saturates), B2 forward, B2b
-     through autograd; B1 and B2 also at ragged shapes and on a view at
-     storage offset 1 (their scalar and packing paths; B2 with its staging
-     in shared memory forced on and off). B1 must equal its plain version
-     bit for bit (in bf16: the plain version in f32, rounded once);
+     through autograd; all four also at ragged shapes (B2b at the
+     gradients of B2's) and on a view at storage offset 1 (their scalar
+     and packing paths; B2 with its staging in shared memory forced on
+     and off). B1 and B1b must equal their plain versions bit for bit (in
+     bf16: the plain version in f32, rounded once);
   3. inversion: full-width PSp(output_size=256, input_size=112) ReStyle
      inversion, seeded random weights, batch 8, 5 iterations, and check
      that it launched B1 13 and B2 12 times per iteration;
   4. run the same weights and inputs on the CPU (plain versions) at
      batch 2 for 2 iterations and compare with the card's result;
   5. time each kernel at its largest on-path shape beside its bound and
-     its plain version; B1 and B2 at every shape of one bf16 batch-128
-     synthesis (13 B1 and 12 B2 launches), summed beside the summed bound;
-     run_on_batch in images/s;
-  6. profile one bf16 batch-128 run_on_batch: device time by kernel, B1's
-     and B2's totals, and the device's busy share;
+     its plain version; each kernel at every shape of one bf16 batch-128
+     synthesis (13 B1 and 12 B2 launches) or train step's backward (13
+     B1b and 12 B2b), summed beside the summed bound; run_on_batch in
+     images/s;
+  6. profile one bf16 batch-128 run_on_batch: device time by kernel, each
+     kernel's total, and the device's busy share;
   7. training: Stage2Coach on the same PSp(256) at input 112, L2 1.0 +
      LPIPS-alex 0.8 (seeded random LPIPS), Ranger lr 1e-4, one refinement
      iteration, 3 steps at batch 8 in f32 with TF32 off: finite losses,
@@ -45,9 +47,10 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the one before that the card's name and power
 limit as nvidia-smi reports them. Exits nonzero without a GPU.
 
---kernel-times builds the kernels, times B1 and B2 at every shape one
-synthesis gives them at batch 8 and 128 in f32 and bf16, profiles one bf16
-batch-128 run_on_batch as phase 6 does, prints the times as one JSON line
+--kernel-times builds the kernels, times each kernel at every shape one
+synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
+profiles one bf16 batch-128 run_on_batch as phase 6 does and one bf16
+batch-128 train step as phase 10 does, prints the times as one JSON line
 and stops. A copy of this file placed at the root of an older checkout
 (from the training slice on) times that checkout's kernels: run both
 checkouts in turns in one session to compare.
@@ -111,7 +114,7 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 B1_FLOPS_PER_ELEM = 5         # add, compare/select, mul, mul, clamp
 B1B_FLOPS_PER_ELEM = 8        # add, compare, 2 mul (y), abs, compare, 2 mul
 B2_FLOPS_PER_INPUT = 30       # 3 x 6 vertical + 2 x 6 horizontal
-B2B_FLOPS_PER_INPUT = 60      # 5 rows x 5 multiply-adds + 5 row weights
+B2B_FLOPS_PER_INPUT = 24      # 2 g rows x 8 horizontally, 8 vertically
 KERNELS = ("bias_act", "bias_act_grad", "smooth_upsample",
            "smooth_upsample_grad")
 # shapes that reach B1's and B2's scalar and packing paths: HW = 63,
@@ -121,7 +124,9 @@ B1_RAGGED = [(3, 5, 7, 9), (8, 512), (2, 3, 1, 1)]
 B2_RAGGED = [(2, 3, 1, 1), (1, 2, 1, 7), (2, 5, 3, 9), (1, 64, 130, 66),
              (1, 64, 130, 136), (2, 64, 67, 72)]
 PROFILE_NAMES = {"bias_act": "fused_bias_act_kernel",
-                 "smooth_upsample": "smooth_upsample_kernel"}
+                 "bias_act_grad": "fused_bias_act_grad_kernel",
+                 "smooth_upsample": "smooth_upsample_kernel",
+                 "smooth_upsample_grad": "smooth_upsample_grad_kernel"}
 SQRT2 = math.sqrt(2.0)
 
 
@@ -233,13 +238,36 @@ def read_launches():
             "smooth_upsample_grad": smooth_upsample_grad.launches}
 
 
+def b1b_check(dname, shape, got, want, what):
+    """B1b against its plain version, bit for bit."""
+    bits = torch.int32 if dname == "f32" else torch.int16
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got.view(bits), want.view(bits)):
+        fail(f"B1b {dname} {shape} {what}: not bit-equal to the plain "
+             f"version, max err {err:.3e}")
+    return err
+
+
+def b2b_check(dname, shape, got, g):
+    """B2b against its plain version: f32 sums the taps in another order;
+    in bf16 the plain version rounds after each of its steps, the kernel
+    once. |dx| <= 2.5^2 max|g| (the edge columns' weights sum to 2.5)."""
+    want = smooth_upsample_grad_plain(g)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = 6.25 * g.float().abs().max().item()
+    tol = (1e-6 if dname == "f32" else 2.0 ** -6) * scale
+    if not err <= tol:
+        fail(f"B2b {dname} g {shape}: max err {err:.3e} > {tol:.3e}")
+    return err
+
+
 def compare_grads(gen, dname, dtype, b1_shapes, b2_shapes, errs):
-    """B1b (dx, db, double backward) and B2b through the autograd
-    Functions against the plain versions. B1b and its plain version do the
-    same f32 operations on the same inputs and round once: they agree to
-    one rounding of the output (exactly, in practice). B2b: f32 sums 25
-    taps in another order; in bf16 the plain version rounds after each of
-    its steps, the kernel once."""
+    """B1b (dx, db and the double backward) and B2b through the autograd
+    Functions against the plain versions at the path shapes; both wrappers
+    also called straight at ragged shapes and with one operand a view at
+    storage offset 1, which take their scalar paths. B1b and its plain
+    version do the same f32 operations in the same order and round once:
+    they must agree bit for bit."""
     for shape in b1_shapes:
         x = (torch.randn(shape, generator=gen, device="cuda") * 200
              ).to(dtype).requires_grad_()
@@ -257,20 +285,29 @@ def compare_grads(gen, dname, dtype, b1_shapes, b2_shapes, errs):
         want_db = want.float().sum((0, 2, 3))
         if not bool((want == 0).any()):
             fail(f"B1b {dname} {shape}: the clamp never saturated")
-        ulp = 2.0 ** -23 if dname == "f32" else 2.0 ** -8
-        err = (dx.float() - want.float()).abs()
-        err_dd = (ddg.float() - want_dd.float()).abs()
+        err = max(b1b_check(dname, shape, dx, want, "dx"),
+                  b1b_check(dname, shape, ddg, want_dd, "double backward"))
         err_db = (db - want_db).abs().max().item()
         tol_db = 1e-5 * want.float().abs().sum((0, 2, 3)).max().item()
-        if not (bool((err <= ulp * want.float().abs()).all())
-                and bool((err_dd <= ulp * want_dd.float().abs()).all())
-                and err_db <= tol_db):
-            fail(f"B1b {dname} {shape}: dx err {err.max().item():.3e}, "
-                 f"double backward err {err_dd.max().item():.3e}, db err "
-                 f"{err_db:.3e} (tol {tol_db:.3e})")
+        if not err_db <= tol_db:
+            fail(f"B1b {dname} {shape}: db err {err_db:.3e} (tol "
+                 f"{tol_db:.3e})")
         errs[("bias_act_grad", dname)] = max(
-            errs[("bias_act_grad", dname)], err.max().item(),
-            err_dd.max().item())
+            errs[("bias_act_grad", dname)], err)
+    largest = max(b1_shapes, key=math.prod)
+    for shape, off in ([(s, None) for s in B1_RAGGED]
+                       + [(largest, k) for k in ("x", "g")]):
+        x = (offset_view(shape, dtype, gen, 200) if off == "x" else
+             (torch.randn(shape, generator=gen, device="cuda")
+              * 200).to(dtype))
+        g = (offset_view(shape, dtype, gen) if off == "g" else
+             torch.randn(shape, generator=gen, device="cuda").to(dtype))
+        b = torch.randn(shape[1], generator=gen, device="cuda")
+        want = bias_act_grad_plain(g, x, b, 0.2, SQRT2, 256.0)
+        errs[("bias_act_grad", dname)] = max(
+            errs[("bias_act_grad", dname)], b1b_check(
+                dname, shape, bias_act_grad(g, x, b, 0.2, SQRT2, 256.0),
+                want, f"dx, {off or 'no'} operand at offset 1"))
     for shape in b2_shapes:
         x = torch.randn(shape, generator=gen, device="cuda").to(
             dtype).requires_grad_()
@@ -278,15 +315,20 @@ def compare_grads(gen, dname, dtype, b1_shapes, b2_shapes, errs):
         g = torch.randn((n, c, 2 * h, 2 * w), generator=gen,
                         device="cuda").to(dtype)
         (got,) = torch.autograd.grad(smooth_upsample(x), x, g)
-        want = smooth_upsample_grad_plain(g)
-        err = (got.float() - want.float()).abs().max().item()
-        # |dx| <= 2.5^2 max|g| (the edge columns' weights sum to 2.5)
-        scale = 6.25 * g.float().abs().max().item()
-        tol = (1e-6 if dname == "f32" else 2.0 ** -6) * scale
-        if err > tol:
-            fail(f"B2b {dname} {shape}: max err {err:.3e} > {tol:.3e}")
         errs[("smooth_upsample_grad", dname)] = max(
-            errs[("smooth_upsample_grad", dname)], err)
+            errs[("smooth_upsample_grad", dname)],
+            b2b_check(dname, g.shape, got, g))
+    # the gradients of B2's ragged outputs (H = 1 and W = 1 inputs among
+    # them), and g of the largest path shape at storage offset 1
+    g_shapes = [(n, c, 2 * h, 2 * w)
+                for n, c, h, w in b2_shapes + B2_RAGGED]
+    for shape, offset in ([(s, 0) for s in g_shapes[len(b2_shapes):]]
+                          + [(max(g_shapes, key=math.prod), 1)]):
+        g = (offset_view(shape, dtype, gen) if offset else
+             torch.randn(shape, generator=gen, device="cuda").to(dtype))
+        errs[("smooth_upsample_grad", dname)] = max(
+            errs[("smooth_upsample_grad", dname)],
+            b2b_check(dname, shape, smooth_upsample_grad(g), g))
 
 
 def phase_compare(gen):
@@ -348,7 +390,7 @@ def phase_compare(gen):
     log(f"phase 2: kernels agree with their plain versions at "
         f"{len(b1_shapes)} B1/B1b and {len(b2_shapes)} B2/B2b shapes (the "
         f"inversion and training paths' at batch {BATCH}) in f32 and "
-        f"bf16, B1 bit for bit; B1 and B2 also at "
+        f"bf16, B1 and B1b bit for bit; B1/B1b and B2/B2b also at "
         f"{len(B1_RAGGED)} and {len(B2_RAGGED)} ragged shapes and at "
         f"storage offset 1 (B2 staged and not); max abs err " + ", ".join(
             f"{k}/{d}={v:.3e}" for (k, d), v in errs.items()))
@@ -459,36 +501,50 @@ def kernel_timings(gen):
 
 
 def path_times(gen, batch: int, dtype) -> dict:
-    """B1 and B2 at each shape one synthesis gives them at ``batch``:
-    ``{kernel: [{shape, launches, ms, bound_ms}]}``, launches per synthesis;
-    the bound as in ``kernel_timings``."""
+    """Each kernel at each shape one inversion iteration or train step
+    gives it at ``batch``: ``{kernel: [{shape, launches, ms, bound_ms}]}``,
+    launches per synthesis (B1, B2) or per train step's backward (B1b, B2b;
+    B2b's shape is g's); the bound as in ``kernel_timings``."""
     elem = torch.finfo(dtype).bits // 8
     b1_shapes, b2_shapes = on_path_shapes(batch)
-    out = {"bias_act": [], "smooth_upsample": []}
+    out = {k: [] for k in KERNELS}
+
+    def add(k, shape, launches, fn, bytes_, ops):
+        out[k].append(dict(
+            shape=list(shape), launches=launches, ms=cuda_time_ms(fn),
+            bound_ms=max(bytes_ / HBM_BYTES_PER_S,
+                         ops / F32_FLOPS_PER_S) * 1e3))
+
     for shape in b1_shapes:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         b = torch.randn(shape[1], generator=gen, device="cuda")
         n = x.numel()
-        out["bias_act"].append(dict(
-            shape=list(shape), launches=b1_launches(shape),
-            ms=cuda_time_ms(lambda: bias_act(x, b, "lrelu", 1.0, 256.0)),
-            bound_ms=max((2 * n * elem + 4 * b.numel()) / HBM_BYTES_PER_S,
-                         B1_FLOPS_PER_ELEM * n / F32_FLOPS_PER_S) * 1e3))
+        add("bias_act", shape, b1_launches(shape),
+            lambda: bias_act(x, b, "lrelu", 1.0, 256.0),
+            2 * n * elem + 4 * b.numel(), B1_FLOPS_PER_ELEM * n)
+        add("bias_act_grad", shape, b1_launches(shape),
+            lambda: bias_act_grad(g, x, b, 0.2, SQRT2, 256.0),
+            3 * n * elem + 4 * b.numel(), B1B_FLOPS_PER_ELEM * n)
     for shape in b2_shapes:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        nb, c, h, w = shape
+        g = torch.randn((nb, c, 2 * h, 2 * w), generator=gen,
+                        device="cuda").to(dtype)
         n = x.numel()
-        out["smooth_upsample"].append(dict(
-            shape=list(shape), launches=1,
-            ms=cuda_time_ms(lambda: smooth_upsample(x)),
-            bound_ms=max(5 * n * elem / HBM_BYTES_PER_S,
-                         B2_FLOPS_PER_INPUT * n / F32_FLOPS_PER_S) * 1e3))
-    del x
+        add("smooth_upsample", shape, 1, lambda: smooth_upsample(x),
+            5 * n * elem, B2_FLOPS_PER_INPUT * n)
+        add("smooth_upsample_grad", g.shape, 1,
+            lambda: smooth_upsample_grad(g), 5 * n * elem,
+            B2B_FLOPS_PER_INPUT * n)
+    del x, g
     return out
 
 
 def path_sums(times: dict) -> dict:
     """``{kernel: (path_ms, path_bound_ms)}``: each summed over one
-    synthesis's launches."""
+    synthesis's (B1, B2) or one train step's backward's (B1b, B2b)
+    launches."""
     return {k: (sum(r["launches"] * r["ms"] for r in rows),
                 sum(r["launches"] * r["bound_ms"] for r in rows))
             for k, rows in times.items()}
@@ -501,8 +557,10 @@ def log_path_times(label: str, times: dict):
                 f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_ms'] / r['ms']:.1%})")
     for k, (ms, bound) in path_sums(times).items():
-        log(f"{label}: {k} over one synthesis: {ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound / ms:.1%} of the bound)")
+        log(f"{label}: {k} over one "
+            f"{'train step' if k.endswith('_grad') else 'synthesis'}: "
+            f"{ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of the "
+            f"bound)")
 
 
 def inversion_rate(model, batch: int, dtype) -> float:
@@ -575,6 +633,24 @@ def make_coach(device: str, compute_dtype: str = "float32") -> Stage2Coach:
                        compute_dtype=compute_dtype)
     return Stage2Coach(cfg, lpips_fn=lpips.requires_grad_(False).eval().to(
         device), device=device, seed=0)
+
+
+def ready_coach():
+    """``make_coach`` on the card with its latent average (4096 seeded z)
+    and average image, as the training phases start."""
+    coach = make_coach("cuda")
+    coach.estimate_latent_avg(torch.Generator(device="cuda").manual_seed(1),
+                              n_latent=4096)
+    return coach, coach.make_avg_image()
+
+
+def train_profile(label: str, coach, avg) -> dict:
+    """Phase 10: ``profile_breakdown`` of one bf16 batch-128 train step."""
+    coach.cfg = dataclasses.replace(coach.cfg, compute_dtype="bfloat16")
+    xt, yt = (t.cuda() for t in train_inputs(128, seed=8))
+    noise = torch.Generator(device="cuda").manual_seed(9)
+    return profile_breakdown(label,
+                             lambda: coach.train_step(xt, yt, avg, noise))
 
 
 def train_inputs(batch: int, seed: int):
@@ -772,10 +848,7 @@ def main():
                       lambda: run_on_batch(m16, x16, avg16, ITERS))
     del model, m16, outs, lats, x16, avg16
 
-    coach = make_coach("cuda")
-    coach.estimate_latent_avg(torch.Generator(device="cuda").manual_seed(1),
-                              n_latent=4096)
-    avg = coach.make_avg_image()
+    coach, avg = ready_coach()
     train_launches = phase_train(coach, avg)
     phase_train_cpu_reference(coach.model.latent_avg, avg)
     train_rates = {}
@@ -790,11 +863,8 @@ def main():
             f"{r['images_per_s']:.1f} images/s, {r['step_ms']:.1f} ms/step, "
             f"peak {r['peak_gib']:.1f} GiB")
         torch.backends.cudnn.allow_tf32 = False
-    coach.cfg = dataclasses.replace(coach.cfg, compute_dtype="bfloat16")
-    xt, yt = (t.cuda() for t in train_inputs(128, seed=8))
-    noise = torch.Generator(device="cuda").manual_seed(9)
-    profile_breakdown("phase 10: profile of a bf16 batch-128 train step",
-                      lambda: coach.train_step(xt, yt, avg, noise))
+    train_profile("phase 10: profile of a bf16 batch-128 train step",
+                  coach, avg)
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -815,8 +885,9 @@ def main():
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
-        if name in sums:   # bf16, one synthesis at batch 128
-            kernels[-1]["path_ms"], kernels[-1]["path_bound_ms"] = sums[name]
+        # bf16 at batch 128: one synthesis (B1, B2) or train step's
+        # backward (B1b, B2b)
+        kernels[-1]["path_ms"], kernels[-1]["path_bound_ms"] = sums[name]
     print(json.dumps({"inversion_images_per_s": {
         f"{d}_batch{b}": v for (d, b), v in rates.items()},
         "train": train_rates}))
@@ -828,8 +899,9 @@ def main():
 
 
 def kernel_times_main():
-    """``--kernel-times``: B1 and B2 at every path shape, and the phase-6
-    profile, for a comparison between two checkouts in one session."""
+    """``--kernel-times``: every kernel at every path shape, and the
+    phase-6 and phase-10 profiles, for a comparison between two checkouts
+    on one card."""
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -849,6 +921,9 @@ def kernel_times_main():
     result["profile"] = profile_breakdown(
         "profile of run_on_batch bf16 batch 128",
         lambda: run_on_batch(model, x16, avg16, ITERS))
+    del model, x16, avg16
+    result["train_profile"] = train_profile(
+        "profile of a bf16 batch-128 train step", *ready_coach())
     print(nvidia_smi_line())
     print(json.dumps({"kernel_times": result}))
 

@@ -44,34 +44,21 @@ __global__ void __launch_bounds__(kThreads) fused_bias_act_kernel(
     float gain, float clamp) {
   constexpr unsigned kChunk = kThreads * VEC * kUnroll;
   using V = Pack<T, VEC>;
-  unsigned plane, len;
-  size_t base;
-  float b = 0.f;
-  if (PACKED) {  // per_block whole planes, per_block * hw <= kChunk
-    plane = blockIdx.x * per_block;
-    len = min(per_block, planes - plane) * hw;
-    base = (size_t)plane * hw;
-  } else {       // chunk blockIdx.x % per_block of one plane
-    plane = blockIdx.x / per_block;
-    const unsigned off = (blockIdx.x - plane * per_block) * kChunk;
-    len = min(kChunk, hw - off);
-    base = (size_t)plane * hw + off;
-    b = __ldg(bias + (plane - c * c_div.div(plane)));
-  }
+  const sgfr::PlaneSpan s =
+      sgfr::plane_span<PACKED>(planes, hw, per_block, kChunk);
+  float b = PACKED ? 0.f : sgfr::plane_bias(bias, s.plane, c, c_div);
   V v[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const unsigned i = (u * kThreads + threadIdx.x) * VEC;
-    if (i < len) v[u] = *reinterpret_cast<const V*>(x + base + i);
+    if (i < s.len) v[u] = *reinterpret_cast<const V*>(x + s.base + i);
   }
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const unsigned i = (u * kThreads + threadIdx.x) * VEC;
-    if (i >= len) break;
-    if (PACKED) {  // a vector lies in one plane: hw % VEC == 0
-      const unsigned p = plane + hw_div.div(i);
-      b = __ldg(bias + (p - c * c_div.div(p)));
-    }
+    if (i >= s.len) break;
+    // a vector lies in one plane: hw % VEC == 0
+    if (PACKED) b = sgfr::plane_bias(bias, s.plane + hw_div.div(i), c, c_div);
     V o;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
@@ -80,7 +67,7 @@ __global__ void __launch_bounds__(kThreads) fused_bias_act_kernel(
       if (clamp >= 0.f) t = fminf(fmaxf(t, -clamp), clamp);
       o.v[k] = sgfr::from_f32<T>(t);
     }
-    *reinterpret_cast<V*>(y + base + i) = o;
+    *reinterpret_cast<V*>(y + s.base + i) = o;
   }
 }
 

@@ -88,11 +88,9 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _grad_entry():
     fn = build.load("bias_act_grad").sgfr_fused_bias_act_grad
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_uint] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.c_uint] * 6
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,18 +103,19 @@ def _check_bias(op: str, x: torch.Tensor, bias: torch.Tensor) -> int:
     return code
 
 
-_THREADS, _UNROLL = 256, 4   # bias_act.cu's kThreads and kUnroll
+_THREADS, _UNROLL = 256, 4   # kThreads and kUnroll of bias_act(_grad).cu
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(shape, elem: int, x_ptr: int, y_ptr: int,
-          sms: int) -> Tuple[int, ...]:
-    """Kernel B1's launch for a contiguous x of ``shape`` read as (planes,
-    hw) on a card of ``sms`` SMs: ``(vec, packed, per_block, blocks)``
-    and the (magic, shift) pairs of hw and C. The pointers count only modulo 16 (the wrapper passes
-    them so, to hit the cache). 16-byte vectors (``vec = 16 // elem``
-    values) only where both pointers are 16-byte aligned and hw is a
-    multiple of vec, else the scalar path (vec 1). A chunk is
+def _plan(shape, elem: int, x_ptr: int, y_ptr: int, sms: int,
+          g_ptr: int = 0) -> Tuple[int, ...]:
+    """The launch of kernel B1 (x in, y out) or B1b (x and g in, dx = y
+    out) for a contiguous x of ``shape`` read as (planes, hw) on a card of
+    ``sms`` SMs: ``(vec, packed, per_block, blocks)`` and the (magic,
+    shift) pairs of hw and C. The pointers count only modulo 16 (the
+    wrapper passes them so, to hit the cache). 16-byte vectors (``vec = 16
+    // elem`` values) only where every pointer is 16-byte aligned and hw is
+    a multiple of vec, else the scalar path (vec 1). A chunk is
     ``_THREADS * vec * _UNROLL`` elements: a plane of at least one chunk is
     cut into chunks, one block each (packed 0, per_block = chunks per
     plane); smaller planes go whole to a block, up to a chunk's worth and
@@ -125,7 +124,7 @@ def _plan(shape, elem: int, x_ptr: int, y_ptr: int,
     hw = math.prod(shape[2:])
     planes = math.prod(shape) // hw if hw else 0
     vec = 16 // elem
-    if x_ptr % 16 or y_ptr % 16 or hw % vec:
+    if x_ptr % 16 or y_ptr % 16 or g_ptr % 16 or hw % vec:
         vec = 1
     chunk = _THREADS * vec * _UNROLL
     if hw >= chunk:
@@ -177,9 +176,15 @@ def bias_act_grad(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(x.shape)} {x.dtype} {x.device}")
     b = bias.detach().to(torch.float32).contiguous()
     dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    hw = math.prod(x.shape[2:])
+    plan = _plan(x.shape, x.element_size(), x.data_ptr() % 16,
+                 dx.data_ptr() % 16, build.sm_count(x.device.index),
+                 g.data_ptr() % 16)
     rc = _grad_entry()(g.data_ptr(), x.data_ptr(), b.data_ptr(),
-                       dx.data_ptr(), x.numel(), math.prod(x.shape[2:]),
-                       x.shape[1], code, slope, gain, slope * gain,
+                       dx.data_ptr(), x.numel() // hw, hw, x.shape[1], code,
+                       *plan, slope, gain, slope * gain,
                        -1.0 if clamp is None else clamp,
                        torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error("bias_act_grad", rc)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,17 +91,20 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _grad_entry():
     fn = build.load("smooth_upsample_grad").sgfr_smooth_upsample_grad
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_uint] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-_THREADS = 256              # smooth_upsample.cu's kThreads
+_THREADS = 256              # kThreads of smooth_upsample(_grad).cu
 _TILE_W = 128               # input columns of a tile
 _SMEM_BYTES = 40 * 1024     # a tile's shared memory, under the 48 KB static
 _STAGE_MIN_BYTES = 1 << 23  # smaller inputs are not staged
 _UNSTAGED_SPLIT = 4         # an unstaged tile may be 1/4 of a pass's rows
+_RUN_ROWS = 32              # dx rows a B2b thread walks, at most
+_GRAD_COLS = 4              # dx columns of a B2b thread: its kCols
 
 
 def _ceil_log2(v: int) -> int:
@@ -181,6 +184,48 @@ def _launch_args(shape, elem: int, x_off: int, y_off: int, sms: int):
             *build.fastdiv(shape[2]))
 
 
+@functools.lru_cache(maxsize=256)
+def _grad_plan(shape, elem: int, g_ptr: int, dx_ptr: int,
+               sms: int) -> Tuple[int, ...]:
+    """Kernel B2b's launch for dx of ``shape`` (N, C, H, W), g (N, C, 2H,
+    2W) contiguous, on a card of ``sms`` SMs; the pointers count only
+    modulo 16. Returns the C function's arguments after the dtype:
+    ``(row_blocks, col_tiles, runs, runs_per_plane, run_rows, tile_w,
+    lg_nq, vec)`` and the (magic, shift) pair of runs_per_plane.
+
+    A thread reads 2 * ``_GRAD_COLS`` g columns a row and writes
+    ``_GRAD_COLS`` dx columns of each of a run of up to ``run_rows`` dx
+    rows of one plane. A tile is up to 32 such strips of a row (``tile_w``
+    dx columns, grid dimension y): a row of a tile is ``1 << lg_nq`` lanes
+    of one warp, and a block ``_THREADS >> lg_nq`` runs (grid dimension
+    x); ``runs_per_plane`` runs cut each plane. Runs start at
+    ``_RUN_ROWS`` rows (or H) and are halved while the grid gives fewer
+    than two blocks an SM. ``vec``: g read by 16-byte loads and dx stored
+    by one store of the thread's columns, where g's pointer is 16-byte
+    aligned, dx's aligned to that store and W a multiple of the columns;
+    else by element."""
+    n, c, h, w = shape
+    planes = n * c
+    cols = _GRAD_COLS
+    vec = int(g_ptr % 16 == 0 and dx_ptr % (cols * elem) == 0
+              and w % cols == 0)
+    tile_w = min(w, 32 * cols)
+    col_tiles = -(-w // tile_w)
+    lg_nq = _ceil_log2(-(-tile_w // cols))
+    groups = _THREADS >> lg_nq
+    run_rows = min(h, _RUN_ROWS)
+    while (-(-planes * -(-h // run_rows) // groups) * col_tiles < 2 * sms
+           and run_rows > 1):
+        run_rows = -(-run_rows // 2)
+    runs_per_plane = -(-h // run_rows)
+    runs = planes * runs_per_plane
+    if runs >= 2 ** 31 or col_tiles >= 2 ** 16 or 4 * h * w >= 2 ** 31:
+        raise ValueError(f"smooth_upsample_grad: dx {tuple(shape)} is too "
+                         f"large for B2b")
+    return (-(-runs // groups), col_tiles, runs, runs_per_plane, run_rows,
+            tile_w, lg_nq, vec, *build.fastdiv(runs_per_plane))
+
+
 def _upsample(x: torch.Tensor) -> torch.Tensor:
     """Kernel B2 on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
@@ -217,8 +262,13 @@ def smooth_upsample_grad(g: torch.Tensor) -> torch.Tensor:
                          f"H, W >= 1, got {tuple(g.shape)}")
     n, c, h2, w2 = g.shape
     dx = torch.empty((n, c, h2 // 2, w2 // 2), dtype=g.dtype, device=g.device)
-    rc = _grad_entry()(g.data_ptr(), dx.data_ptr(), n * c, h2 // 2, w2 // 2,
-                       code, torch.cuda.current_stream(g.device).cuda_stream)
+    if dx.numel() == 0:
+        return dx
+    rc = _grad_entry()(g.data_ptr(), dx.data_ptr(), h2 // 2, w2 // 2, code,
+                       *_grad_plan(dx.shape, g.element_size(),
+                                   g.data_ptr() % 16, dx.data_ptr() % 16,
+                                   build.sm_count(g.device.index)),
+                       torch.cuda.current_stream(g.device).cuda_stream)
     build.raise_on_error("smooth_upsample_grad", rc)
     smooth_upsample_grad.launches += 1
     return dx

@@ -164,8 +164,9 @@ def test_smooth_upsample_gradcheck_f64(shape):
 
 
 def _kernel_axis_weights(n):
-    """The (2n, n) matrix A[m, j] by the rule kernel B2b evaluates per
-    thread (``csrc/smooth_upsample_grad.cu::axis_weights``)."""
+    """The (2n, n) matrix A[m, j] of one axis of B2's taps, clamped at the
+    edges: the weights kernel B2b's header (``csrc/smooth_upsample_grad.cu``)
+    states, [1, 4, 6, 4, 1] / 8 inside and the edge terms at j = 0, n - 1."""
     k = (0.125, 0.375, 0.375, 0.125)
     a = np.zeros((2 * n, n))
     for j in range(n):

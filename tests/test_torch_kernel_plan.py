@@ -12,6 +12,7 @@ inversion and training paths give the kernels at batch 8 (as
 ``chip_smoke.py``) and ragged ones.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -64,11 +65,22 @@ def test_fastdiv_equals_floor_division(kind):
                                       err_msg=f"divisor {d}")
 
 
-def b1_replay(shape, elem, x_ptr):
-    """bias_act.cu's blocks under ``fused_act._plan``: (count of each
-    element, channel each element's bias came from)."""
-    vec, packed, per_block, blocks = fused_act._plan(shape, elem, x_ptr,
-                                                     ALIGNED, SMS)[:4]
+def b1_replay(shape, elem, x_ptr, y_ptr=ALIGNED, g_ptr=None, sms=SMS):
+    """bias_act.cu's blocks under ``fused_act._plan`` (with ``g_ptr``:
+    bias_act_grad.cu's, which reads g beside x and cuts the tensor by the
+    same ``plane_span``): (every element covered once, every element's bias
+    from its channel)."""
+    plan = fused_act._plan(shape, elem, x_ptr, y_ptr, sms,
+                           *(() if g_ptr is None else (g_ptr,)))[:4]
+    # the pointers matter only to the vector path's alignment checks
+    ptrs = ((x_ptr, y_ptr, ALIGNED if g_ptr is None else g_ptr)
+            if plan[0] > 1 else None)
+    return _b1_replay_plan(shape, elem, plan, ptrs)
+
+
+@functools.lru_cache(maxsize=None)
+def _b1_replay_plan(shape, elem, plan, ptrs):
+    vec, packed, per_block, blocks = plan
     hw, c = math.prod(shape[2:]), shape[1]
     planes, chunk = math.prod(shape) // hw, 256 * vec * 4
     count = np.zeros(planes * hw, np.int32)
@@ -88,15 +100,16 @@ def b1_replay(shape, elem, x_ptr):
             e = (np.arange(0, chunk, vec)[:, None] + np.arange(vec)).ravel()
             threads_cover[n] = np.array_equal(np.sort(e[e < n]), np.arange(n))
         if vec > 1:   # 16-byte loads and stores
-            assert (x_ptr + base * elem) % 16 == 0
-            assert (ALIGNED + base * elem) % 16 == 0
+            for ptr in ptrs:
+                assert (ptr + base * elem) % 16 == 0
         count[base:base + n] += 1
         # packed: each vector's plane; a vector lies in one plane
         p = plane + (device_div(np.arange(n) // vec * vec, hw).astype(
             np.int64) if packed else 0)
         chan[base:base + n] = p - c * device_div(p, c).astype(np.int64)
     assert all(threads_cover.values())
-    return count, chan
+    want = np.repeat(np.arange(planes, dtype=np.int32) % c, hw)
+    return bool((count == 1).all()), bool(np.array_equal(chan, want))
 
 
 @pytest.mark.parametrize("elem", [4, 2])
@@ -104,12 +117,24 @@ def b1_replay(shape, elem, x_ptr):
                          ids=lambda s: "x".join(map(str, s)))
 def test_b1_blocks_cover_each_element_once_with_its_channel(shape, elem):
     for x_ptr in (ALIGNED, ALIGNED + elem):   # a view at storage offset 1
-        count, chan = b1_replay(shape, elem, x_ptr)
-        hw = math.prod(shape[2:])
-        assert (count == 1).all()
-        want = np.repeat(np.arange(count.size // hw, dtype=np.int32)
-                         % shape[1], hw)
-        np.testing.assert_array_equal(chan, want)
+        assert b1_replay(shape, elem, x_ptr) == (True, True)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("shape", B1_PATH + B1_RAGGED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_b1b_blocks_cover_each_element_once_with_its_channel(shape, elem):
+    """B1b under the plan at both SM counts, all three tensors aligned and
+    each of x, g and dx in turn at storage offset 1 (the scalar path).
+    Replays are cached by plan: B1b's plan is B1's where the pointers
+    agree, and most shapes get one plan at both SM counts."""
+    a, off = ALIGNED, ALIGNED + elem
+    for sms in (114, 132):
+        for x_ptr, g_ptr, dx_ptr in [(a, a, a), (off, a, a), (a, off, a),
+                                     (a, a, off)]:
+            assert b1_replay(shape, elem, x_ptr, dx_ptr, g_ptr, sms) == (
+                True, True)
+    assert fused_act._plan(shape, elem, a, a, SMS, off)[0] == 1
 
 
 def b2_replay(x, elem, x_ptr):
