@@ -42,10 +42,38 @@ Phases, each fatal on failure (nonzero exit, no result line):
   9. training images/s at bf16 batch 32 and 128 and f32 (TF32 off and on)
      batch 32;
  10. profile one bf16 batch-128 train step: device time by kernel and the
-     busy share.
+     busy share;
+ 11. stage-3 face-recognition training at full width: the recipe of
+     configs/stage3_bupt_ir50.json (PSpFaceRec IR-SE-50 at 112 with block
+     dropout 0.15, ArcFace s 64 m 0.5 over 28 000 classes, focal loss, SGD
+     lr 0.03 momentum 0.9 weight decay 2e-3 without BatchNorm), its input
+     layer and body handed over from phase 7's stage-2 coach with the
+     coach's average image; 2 steps with the body frozen and 2 unfrozen at
+     f32 batch 8 (TF32 off) on uint8 128 px images that come from packed
+     shards through the loader and the pinned side-stream prefetch and are
+     cropped and flipped in the step: finite losses, the body
+     bit-unchanged over the frozen steps, the input layer, output layer
+     and head moved, the BatchNorm running statistics moved, and no launch
+     of B1, B1b, B2 or B2b;
+ 12. one first stage-3 step from the same weights and uint8 inputs at
+     batch 4 on the card and on the CPU, dropout off: loss, every tensor's
+     update and the BatchNorm running statistics agree;
+ 13. stage-3 training images/s and peak GiB at bf16 batch 100 and 256, f32
+     batch 100 (TF32 off and on); the step's model FLOPs (FlopCounterMode)
+     and stage3_train_mfu (FLOPs / step time / 989e12, bf16 batch 256); a
+     profile of one bf16 batch-256 step;
+ 14. RFW-style verification with phase 11's backbone as handed over (before
+     its steps on random labels, which pull the embeddings of different
+     images together): 6000 seeded synthetic pairs at 112 px (12 000
+     images of smooth random fields; a same-identity pair is one image
+     twice) through perform_val with centre-crop TTA at batch 256 in f32
+     and bf16: finite unit-norm
+     embeddings, the first 32 within 1e-3 of the CPU's, 10-fold accuracy
+     at least 0.99, no launch of B1, B1b, B2 or B2b; embed images/s.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels as JSON, and the one before that the card's name and power
-limit as nvidia-smi reports them. Exits nonzero without a GPU.
+the kernels as JSON, the one before that the card's name and power limit
+as nvidia-smi reports them, and the one before that the stage-3 numbers
+as JSON. Exits nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -70,15 +98,26 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
+from stylegan_for_facerec_torch.data.packed import (PackedLoader,
+                                                    PackedTrainDataset,
+                                                    device_prefetch,
+                                                    write_packed)
 from stylegan_for_facerec_torch.eval.inference import run_on_batch
+from stylegan_for_facerec_torch.eval.verification import evaluate
+from stylegan_for_facerec_torch.eval.verify_runner import (compute_embeddings,
+                                                           make_embed_fn,
+                                                           perform_val)
 from stylegan_for_facerec_torch.losses.perceptual import LPIPS
-from stylegan_for_facerec_torch.models.psp import build_psp
+from stylegan_for_facerec_torch.models.psp import PSpFaceRec, build_psp
 from stylegan_for_facerec_torch.models.stylegan2_ada import channels_for
 from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build, resample
@@ -88,7 +127,12 @@ from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
 from stylegan_for_facerec_torch.ops.resample import (
     smooth_upsample, smooth_upsample_grad, smooth_upsample_grad_plain,
     smooth_upsample_plain)
+from stylegan_for_facerec_torch.nn.layers import Dropout
 from stylegan_for_facerec_torch.train.stage2 import Stage2Coach, Stage2Config
+from stylegan_for_facerec_torch.train.stage3 import (Stage3Config,
+                                                     Stage3Trainer)
+from stylegan_for_facerec_torch.utils.checkpoint import load_stage2_encoder
+from stylegan_for_facerec_torch.utils.config import Stage3Options, load_config
 
 OUTPUT_SIZE, INPUT_SIZE, BATCH, ITERS = 256, 112, 8, 5
 CPU_BATCH, CPU_ITERS = 2, 2
@@ -128,6 +172,16 @@ PROFILE_NAMES = {"bias_act": "fused_bias_act_kernel",
                  "smooth_upsample": "smooth_upsample_kernel",
                  "smooth_upsample_grad": "smooth_upsample_grad_kernel"}
 SQRT2 = math.sqrt(2.0)
+# stage 3: the recipe's configuration file, BUPT-BalancedFace's 4 x 7000
+# identities, the batches of each phase, one RFW ethnicity's pair count
+STAGE3_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "stage3_bupt_ir50.json")
+S3_CLASSES, S3_BATCH, S3_CPU_BATCH, S3_STEPS = 28000, 8, 4, 4
+S3_RATES = (("bf16", "bfloat16", False, 100), ("bf16", "bfloat16", False, 256),
+            ("f32", "float32", False, 100), ("tf32", "float32", True, 100))
+S3_PROFILE_BATCH = 256
+VERIFY_PAIRS, VERIFY_BATCH = 6000, 256
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense, NVIDIA data sheet
 
 
 def fail(msg: str):
@@ -579,10 +633,12 @@ def inversion_rate(model, batch: int, dtype) -> float:
     return batch * reps / (time.perf_counter() - t0)
 
 
-def profile_breakdown(label: str, fn, top: int = 12) -> dict:
+def profile_breakdown(label: str, fn, top: int = 12,
+                      details: dict = None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's wall time. Returns B1's and
-    B2's device ms and launches in that call."""
+    B2's device ms and launches in that call; ``details``, when given, is
+    filled with the device and wall ms and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                              # warm-up
     torch.cuda.synchronize()
@@ -605,9 +661,14 @@ def profile_breakdown(label: str, fn, top: int = 12) -> dict:
         return {}
     log(f"{label}: device busy {dev_ms:.1f} ms of {wall_ms:.1f} ms wall "
         f"({dev_ms / wall_ms:.1%})")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+    tops = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
+    for e in tops:
         t = e.self_device_time_total / 1e3
         log(f"  {t:9.2f} ms {t / dev_ms:6.1%} x{e.count:<5d} {e.key[:90]}")
+    if details is not None:
+        details.update(device_ms=dev_ms, wall_ms=wall_ms, top=[
+            [e.key[:90], e.self_device_time_total / 1e3, e.count]
+            for e in tops])
     for e in spans:
         log(f"  annotated span {e.key}: {e.device_time_total / 1e3:.2f} ms "
             f"of device time inside it")
@@ -787,6 +848,332 @@ def train_rate(coach, avg, batch: int, compute_dtype: str) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# -- stage 3 -----------------------------------------------------------------
+
+def stage3_trainer(device: str, compute_dtype: str = "float32",
+                   dropout: bool = True, augment: bool = True
+                   ) -> Stage3Trainer:
+    """The stage-3 recipe of ``STAGE3_CONFIG`` at full width over
+    ``S3_CLASSES`` classes, weights drawn from seed 0 (on the CPU, so every
+    device gets the same). ``dropout=False`` sets every dropout to p = 0;
+    ``augment`` crops 112 px out of larger inputs and flips them."""
+    opts = load_config(Stage3Options, STAGE3_CONFIG)
+    backbone = PSpFaceRec(size=opts.input_size[0], emb_size=opts.emb_size,
+                          block_dropout=opts.dropout or None)
+    cfg = Stage3Config(
+        emb_size=opts.emb_size, num_classes=S3_CLASSES, head=opts.head,
+        loss=opts.loss, arcface_s=opts.arcface_s, margin=opts.margin,
+        lr=opts.lr, momentum=opts.momentum, weight_decay=opts.weight_decay,
+        batch_size=opts.batch_size, num_epochs=opts.num_epochs,
+        stages=tuple(opts.stages),
+        freeze_backbone_epochs=opts.freeze_backbone_epochs,
+        compute_dtype=compute_dtype,
+        augment_crop=opts.input_size[0] if augment else None)
+    trainer = Stage3Trainer(backbone, cfg, steps_per_epoch=1000,
+                            device=device, seed=0)
+    if not dropout:
+        for m in backbone.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return trainer
+
+
+def stage3_inputs(batch: int, seed: int, size: int = 128):
+    """uint8 NHWC images and labels, drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (batch, size, size, 3), generator=g,
+                      dtype=torch.uint8)
+    return x, torch.randint(0, S3_CLASSES, (batch,), generator=g)
+
+
+def _params(module, prefix):
+    return {k: v.detach().clone() for k, v in module.named_parameters()
+            if k.startswith(prefix)}
+
+
+def phase_stage3_train(coach, avg):
+    """Phase 11: the stage-2 -> stage-3 handoff and the stage-3 main path,
+    2 frozen and 2 unfrozen steps at f32 batch S3_BATCH."""
+    trainer = stage3_trainer("cuda")
+    bb = trainer.backbone
+    load_stage2_encoder(bb, coach.model.state_dict())
+    with torch.no_grad():
+        bb.avg_image.copy_(avg.permute(2, 0, 1))
+    # the verification phase's model: the backbone as handed over (steps on
+    # random labels draw the embeddings of different images together)
+    handed = PSpFaceRec(size=bb.size, emb_size=trainer.cfg.emb_size).cuda()
+    handed.load_state_dict(bb.state_dict())
+    body0 = _params(bb, "encoder.body.")
+    s2 = {k: v for k, v in coach.model.encoder.body.named_parameters()}
+    if any(not torch.equal(v, s2[k[len("encoder.body."):]])
+           for k, v in body0.items()):
+        fail("the stage-2 body did not reach the stage-3 backbone")
+    start = {k: v.detach().clone() for k, v in bb.state_dict().items()}
+    head0 = trainer.head_weight.detach().clone()
+    # the host data path: packed uint8 shards, the loader's producer
+    # thread, pinned batches copied on a side stream
+    x, y = stage3_inputs(S3_BATCH * S3_STEPS, seed=20)
+    with tempfile.TemporaryDirectory() as shards:
+        write_packed(shards, x.numpy(), y.numpy(),
+                     [str(i) for i in range(S3_CLASSES)], shard_size=16)
+        ds = PackedTrainDataset(shards)
+        want_labels = [yb.tolist() for _, yb in PackedLoader(ds, S3_BATCH)]
+        loader = PackedLoader(ds, S3_BATCH)
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, labels = [], []
+        for i, (xb, yb) in enumerate(device_prefetch(iter(loader))):
+            if xb.device.type != trainer.device.type or \
+                    xb.dtype != torch.uint8:
+                fail(f"prefetched batch on {xb.device} as {xb.dtype}")
+            frozen = i < S3_STEPS // 2
+            m = trainer.train_step(xb, yb, i, trainer.freeze_mask(frozen))
+            losses.append(m["loss"].item())
+            labels.append(yb.tolist())
+            if i == S3_STEPS // 2 - 1:
+                after_frozen = _params(bb, "encoder.body.")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_launches()
+    if labels != want_labels or len(labels) != S3_STEPS:
+        fail(f"the prefetched batches are not the loader's: {labels}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite stage-3 losses {losses}")
+    changed = [k for k in body0 if not torch.equal(body0[k],
+                                                   after_frozen[k])]
+    if changed:
+        fail(f"the frozen body changed: {changed[:5]}")
+    end = bb.state_dict()
+    for part in ("encoder.input_layer.", "encoder.output_layer.",
+                 "encoder.body."):
+        keys = [k for k, _ in bb.named_parameters() if k.startswith(part)]
+        moved = [k for k in keys if not torch.equal(start[k], end[k])]
+        # BatchNorm shifts right before a train-mode BatchNorm have
+        # gradients that are zero by construction
+        if len(moved) < 0.9 * len(keys):
+            fail(f"only {len(moved)} of {len(keys)} {part} tensors moved")
+    if torch.equal(head0, trainer.head_weight):
+        fail("the head did not move")
+    stats = [k for k in end if k.endswith("running_mean")]
+    still = [k for k in stats if torch.equal(start[k], end[k])]
+    if still:
+        fail(f"BatchNorm statistics did not move: {still[:5]}")
+    if any(launches.values()):
+        fail(f"the stage-3 train step launched {launches}")
+    log(f"phase 11: stage-3 PSpFaceRec IR-SE-50, ArcFace over {S3_CLASSES} "
+        f"classes, f32 batch {S3_BATCH}, {S3_STEPS // 2} frozen + "
+        f"{S3_STEPS - S3_STEPS // 2} unfrozen steps from packed shards "
+        f"through the pinned prefetch in {dt:.2f} s (first calls); losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; body unchanged over the frozen steps ({len(body0)} tensors), "
+        f"{len(stats)} BatchNorm statistics moved; launches {launches}")
+    return trainer, handed, launches
+
+
+def phase_stage3_cpu_reference(avg):
+    """Phase 12: one first unfrozen step of fresh trainers (seed 0: the
+    same weights) on the card and on the CPU, same uint8 inputs, dropout
+    off, no crop."""
+    card = stage3_trainer("cuda", dropout=False, augment=False)
+    cpu = stage3_trainer("cpu", dropout=False, augment=False)
+    for t in (card, cpu):
+        with torch.no_grad():
+            t.backbone.avg_image.copy_(avg.permute(2, 0, 1))
+    x, y = stage3_inputs(S3_CPU_BATCH, seed=21, size=112)
+    before = {k: v.clone() for k, v in cpu.backbone.state_dict().items()}
+    head0 = cpu.head_weight.detach().clone()
+    loss = card.train_step(x.cuda(), y.cuda(), 0)["loss"].item()
+    t0 = time.perf_counter()
+    c_loss = cpu.train_step(x, y, 0)["loss"].item()
+    dt = time.perf_counter() - t0
+    got = {k: v.cpu() for k, v in card.backbone.state_dict().items()}
+    got["head.weight"] = card.head_weight.detach().cpu()
+    want = dict(cpu.backbone.state_dict())
+    want["head.weight"] = cpu.head_weight.detach()
+    before["head.weight"] = head0
+    del card
+    lrel = abs(loss - c_loss) / abs(c_loss)
+    if not lrel <= CPU_REL_TOL:
+        fail(f"stage-3 loss card {loss} vs CPU {c_loss}")
+    params = [k for k, _ in cpu.backbone.named_parameters()] + ["head.weight"]
+    gmax = max((want[k] - before[k]).abs().max().item() for k in params)
+    worst, worst_k = 0.0, None
+    for k in params:
+        u_cpu, u_card = want[k] - before[k], got[k] - before[k]
+        tol = (CPU_UPDATE_TOL * u_cpu.abs().max().item() + 1e-6 * gmax
+               + 4 * torch.finfo(torch.float32).eps * want[k].abs())
+        ratio = ((u_card - u_cpu).abs() / tol).max().item()
+        if ratio > worst:
+            worst, worst_k = ratio, k
+    if worst > 1.0:
+        fail(f"stage-3 update {worst_k} differs by {worst:.2f}x the "
+             f"tolerance")
+    # running statistics: a mean against its layer's spread, a var against
+    # its layer's largest var
+    bn_err = 0.0
+    for k in want:
+        if not k.endswith("running_mean"):
+            continue
+        kv = k[:-len("mean")] + "var"
+        vmax = want[kv].abs().max().item()
+        err = max((got[k] - want[k]).abs().max().item() / math.sqrt(vmax),
+                  (got[kv] - want[kv]).abs().max().item() / vmax)
+        if err > 1e-4:
+            fail(f"stage-3 BatchNorm {k}: card vs CPU {err:.3e} of scale")
+        bn_err = max(bn_err, err)
+    log(f"phase 12: first stage-3 step card vs CPU at batch {S3_CPU_BATCH}: "
+        f"loss {loss:.6f} vs {c_loss:.6f} (rel {lrel:.2e}); worst tensor "
+        f"{worst_k} at {worst:.3f} of its tolerance; BatchNorm running "
+        f"statistics {bn_err:.2e} of scale; CPU step {dt:.1f} s")
+    return {"loss_rel": lrel, "worst_update_ratio": worst,
+            "worst_update_tensor": worst_k, "bn_rel": bn_err}
+
+
+def stage3_rate(trainer, batch: int, compute_dtype: str) -> dict:
+    trainer.cfg = dataclasses.replace(trainer.cfg, compute_dtype=compute_dtype)
+    x, y = (t.cuda() for t in stage3_inputs(batch, seed=22))
+    trainer.train_step(x, y, 0)                         # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        m = trainer.train_step(x, y, i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not math.isfinite(m["loss"].item()):
+        fail(f"non-finite stage-3 loss at {compute_dtype} batch {batch}")
+    return {"images_per_s": batch * reps / dt, "step_ms": dt / reps * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_stage3_rates(trainer) -> dict:
+    """Phase 13: train images/s, the step's model FLOPs and MFU, and a
+    profile of one bf16 batch-256 step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rates = {}
+    for dname, cdt, tf32, batch in S3_RATES:
+        torch.backends.cudnn.allow_tf32 = tf32
+        r = stage3_rate(trainer, batch, cdt)
+        rates[f"{dname}_batch{batch}"] = r
+        log(f"phase 13: stage-3 train step {dname} batch {batch}: "
+            f"{r['images_per_s']:.1f} images/s, {r['step_ms']:.1f} ms/step, "
+            f"peak {r['peak_gib']:.1f} GiB")
+        torch.backends.cudnn.allow_tf32 = False
+    b = S3_PROFILE_BATCH
+    trainer.cfg = dataclasses.replace(trainer.cfg, compute_dtype="bfloat16")
+    x, y = (t.cuda() for t in stage3_inputs(b, seed=23))
+    with FlopCounterMode(display=False) as fc:
+        trainer.train_step(x, y, 0)
+    flops = fc.get_total_flops()
+    step_s = rates[f"bf16_batch{b}"]["step_ms"] / 1e3
+    mfu = flops / step_s / BF16_FLOPS_PER_S
+    log(f"phase 13: stage3_train_mfu {mfu:.4f} ({flops / 1e12:.3f} TFLOP a "
+        f"bf16 batch-{b} step, {flops / b / 3e9:.2f} GFLOP an image "
+        f"forward if backward is twice the forward, over "
+        f"{step_s * 1e3:.1f} ms against {BF16_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s)")
+    details = {}
+    totals = profile_breakdown(
+        f"phase 13: profile of a bf16 batch-{b} stage-3 train step",
+        lambda: trainer.train_step(x, y, 0), details=details)
+    if any(n for _, n in totals.values()):
+        fail(f"the stage-3 train step launched B kernels: {totals}")
+    if details and not any("bf16" in k or "bfloat16" in k
+                           for k, _, _ in details["top"]):
+        fail("no bf16 kernel among the top kernels of the bf16 profile")
+    return {"train": rates, "step_flops": flops, "stage3_train_mfu": mfu,
+            f"profile_bf16_batch{b}": details}
+
+
+def verification_pairs(n_pairs: int, seed: int = 24):
+    """(images (2 n, 112, 112, 3) float32 in [-1, 1], issame (n,)): every
+    other pair, in a seeded order, is one image twice; the other pairs are
+    two different images. Each image is a smooth random field (a 7 x 7
+    grid, bilinearly upsampled) plus uniform noise of 0.1."""
+    g = torch.Generator().manual_seed(seed)
+    issame = (torch.randperm(n_pairs, generator=g) % 2 == 0).numpy()
+    n_same = int(issame.sum())
+    n_unique = n_same + 2 * (n_pairs - n_same)
+    unique = torch.nn.functional.interpolate(
+        torch.rand((n_unique, 3, 7, 7), generator=g), size=(112, 112),
+        mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    unique = (unique * 2 - 1 + 0.1 * (torch.rand(unique.shape, generator=g)
+                                      * 2 - 1)).clamp(-1, 1)
+    first = np.empty(n_pairs, np.int64)
+    second = np.empty(n_pairs, np.int64)
+    first[issame] = np.arange(n_same)
+    second[issame] = first[issame]
+    diff = np.arange(n_same, n_unique).reshape(-1, 2)
+    first[~issame], second[~issame] = diff[:, 0], diff[:, 1]
+    order = np.stack([first, second], axis=1).reshape(-1)
+    return np.ascontiguousarray(unique.numpy()[order]), issame
+
+
+def phase_verify(backbone) -> dict:
+    """Phase 14: perform_val on VERIFY_PAIRS synthetic pairs in f32 and
+    bf16 with ``backbone`` (a PSpFaceRec), the embeddings checked, the
+    first 32 against the CPU."""
+    images, issame = verification_pairs(VERIFY_PAIRS)
+    n = len(images)
+    out, embs = {}, {}
+    reset_launches()
+    for dname, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
+        fn = make_embed_fn(backbone, device="cuda", compute_dtype=cdt)
+        compute_embeddings(fn, images[:VERIFY_BATCH], VERIFY_BATCH)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = compute_embeddings(fn, images, VERIFY_BATCH)
+        embed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acc, thr, _ = perform_val(backbone, images, issame,
+                                  batch_size=VERIFY_BATCH, device="cuda",
+                                  compute_dtype=cdt)
+        val_s = time.perf_counter() - t0
+        if not np.isfinite(emb).all():
+            fail(f"non-finite {dname} embeddings")
+        norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
+        if norm_err > 1e-4:
+            fail(f"{dname} embeddings are not unit-norm ({norm_err:.2e})")
+        e_acc = float(evaluate(emb, issame)[2].mean())
+        same_d = np.sum(np.square(emb[0::2] - emb[1::2]), axis=1)
+        if acc < 0.99 or e_acc < 0.99:
+            fail(f"{dname} verification accuracy {acc:.4f} ({e_acc:.4f} "
+                 f"from the timed embeddings) below 0.99 on duplicate "
+                 f"pairs; squared distances: same <= "
+                 f"{same_d[issame].max():.3e}, different >= "
+                 f"{same_d[~issame].min():.3e}, median "
+                 f"{np.median(same_d[~issame]):.3e}")
+        embs[dname] = emb
+        out[dname] = {"accuracy": acc, "best_threshold": thr,
+                      "embed_images_per_s": n / embed_s,
+                      "perform_val_images_per_s": n / val_s,
+                      "max_same_distance": float(same_d[issame].max()),
+                      "min_diff_distance": float(same_d[~issame].min())}
+        log(f"phase 14: {dname} perform_val over {VERIFY_PAIRS} pairs "
+            f"({n} images): accuracy {acc:.4f}, best threshold {thr:.3f}; "
+            f"squared distances same <= {out[dname]['max_same_distance']:.2e}"
+            f", different >= {out[dname]['min_diff_distance']:.3f}; embed "
+            f"{n / embed_s:.1f} images/s, perform_val {n / val_s:.1f} "
+            f"images/s; unit-norm within {norm_err:.1e}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"verification launched {launches}")
+    cpu = PSpFaceRec(size=backbone.size)
+    cpu.load_state_dict(backbone.state_dict())
+    c_emb = compute_embeddings(make_embed_fn(cpu, device="cpu"), images[:32],
+                               32)
+    err = float(np.abs(embs["f32"][:32] - c_emb).max())
+    scale = float(np.abs(c_emb).max())
+    if not err <= CPU_REL_TOL * scale:
+        fail(f"card and CPU embeddings differ by {err:.3e}")
+    log(f"phase 14: card vs CPU embeddings of the first 32 images: max abs "
+        f"err {err:.3e} (scale {scale:.3e}); launches {launches}")
+    out["cpu_max_abs_err"] = err
+    return out, launches
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -865,6 +1252,14 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
     train_profile("phase 10: profile of a bf16 batch-128 train step",
                   coach, avg)
+
+    trainer, handed, s3_train_launches = phase_stage3_train(coach, avg)
+    del coach
+    stage3 = {"cpu_vs_card": phase_stage3_cpu_reference(avg)}
+    stage3.update(phase_stage3_rates(trainer))
+    del trainer
+    stage3["verify"], s3_verify_launches = phase_verify(handed)
+    del handed
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -882,6 +1277,8 @@ def main():
             else "operations",
             "library_ms": None, "shape": list(r["shape"]), "dtype": "f32",
             "launches_inversion": inv_launches[name],
+            "launches_stage3": s3_train_launches[name]
+            + s3_verify_launches[name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -891,6 +1288,7 @@ def main():
     print(json.dumps({"inversion_images_per_s": {
         f"{d}_batch{b}": v for (d, b), v in rates.items()},
         "train": train_rates}))
+    print(json.dumps({"stage3": stage3}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,4 +8,10 @@ Slice 2: stage-2 encoder training (the ReStyle pSp coach): the backward
 kernels B1b and B2b behind autograd Functions, LPIPS and the identity
 losses, Ranger, logging, the checkpoint manager, preemption handling and
 the training CLI.
+Slice 3: stage-3 face recognition: the IR/IR-SE backbones and the pSp
+face-recognition backbone with block dropout and ghost BatchNorm, the
+margin heads, focal loss, the SGD trainer, the face datasets, packed
+shards and the prefetch to the card, RFW verification, and the training
+and verification CLIs. No kernel of its own: its path runs cuDNN and
+PyTorch operations only.
 """

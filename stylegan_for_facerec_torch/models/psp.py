@@ -1,5 +1,7 @@
-"""ReStyle pSp inversion model (NCHW): IR-SE encoder with map2style heads,
-the residual latent step, and the StyleGAN2-ADA generator."""
+"""ReStyle pSp models (NCHW): the inversion model (IR-SE encoder with
+map2style heads, the residual latent step, the StyleGAN2-ADA generator)
+and the stage-3 face-recognition backbone built from the same encoder
+trunk."""
 
 from __future__ import annotations
 
@@ -12,8 +14,11 @@ from torch import nn
 
 from ..nn.initializers import (init_conv_torch_default_, init_conv_xavier_,
                                init_weights)
+from ..nn.layers import BatchNorm2d
+from ..ops.image import resize_bilinear
 from ..utils.device import resolve_device
-from .irse import BottleneckIR, get_blocks
+from .irse import (BottleneckIR, end_spatial, facerec_output_layer,
+                   get_blocks, init_stem_and_head_)
 from .stylegan2 import EqualLinear
 from .stylegan2_ada import Generator
 
@@ -62,7 +67,7 @@ class BackboneEncoder(nn.Module):
         super().__init__()
         self.input_layer = nn.Sequential(
             nn.Conv2d(input_nc, 64, 3, padding=1, bias=False),
-            nn.BatchNorm2d(64), nn.PReLU(64))
+            BatchNorm2d(64), nn.PReLU(64))
         self.body = nn.Sequential(*[
             BottleneckIR(i, d, s, se=mode == "ir_se")
             for i, d, s in get_blocks(num_layers)])
@@ -75,6 +80,64 @@ class BackboneEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.body(self.input_layer(x))
         return torch.stack([s(x) for s in self.styles], dim=1)
+
+
+class BackboneEncoderDiffHead(nn.Module):
+    """The stage-3 encoder: ``in_channels``-channel input layer, IR-SE
+    body, and the face-recognition output layer (``output_layer_type``
+    "facerec"; the pSp style heads of "pSp" and "both" are not ported).
+    Inputs of another size than ``input_size`` are resized bilinearly."""
+
+    def __init__(self, num_layers: int = 50, mode: str = "ir_se",
+                 emb_size: int = 512,
+                 input_size: int = 112, output_layer_type: str = "facerec",
+                 block_dropout: Optional[float] = None,
+                 in_channels: int = 6):
+        super().__init__()
+        if output_layer_type != "facerec":
+            raise NotImplementedError(
+                f"output_layer_type {output_layer_type!r}: only 'facerec' "
+                f"is ported")
+        self.input_size = input_size
+        self.input_layer = nn.Sequential(
+            nn.Conv2d(in_channels, 64, 3, padding=1, bias=False),
+            BatchNorm2d(64), nn.PReLU(64))
+        self.body = nn.Sequential(*[
+            BottleneckIR(i, d, s, se=mode == "ir_se", dropout=block_dropout)
+            for i, d, s in get_blocks(num_layers)])
+        self.output_layer = facerec_output_layer(end_spatial(input_size),
+                                                 emb_size, 0.5)
+
+    def init_weights_(self, generator: torch.Generator):
+        init_stem_and_head_(self.input_layer, self.output_layer, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] != self.input_size:
+            x = resize_bilinear(x, self.input_size, self.input_size)
+        return self.output_layer(self.body(self.input_layer(x)))
+
+
+class PSpFaceRec(nn.Module):
+    """The stage-3 pSp backbone: the image and a fixed average image
+    (``avg_image``, a (3, size, size) buffer in [-1, 1] that travels in the
+    state_dict) concatenated channel-wise into a
+    ``BackboneEncoderDiffHead``. Takes (N, 3, H, W), resized to ``size``
+    when H differs."""
+
+    def __init__(self, size: int = 112, num_layers: int = 50,
+                 emb_size: int = 512, block_dropout: Optional[float] = None):
+        super().__init__()
+        self.size = size
+        self.encoder = BackboneEncoderDiffHead(
+            num_layers, "ir_se", input_size=size, emb_size=emb_size,
+            block_dropout=block_dropout)
+        self.register_buffer("avg_image", torch.zeros(3, size, size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] != self.size:
+            x = resize_bilinear(x, self.size, self.size)
+        avg = self.avg_image.to(x.dtype)[None].expand(x.shape[0], -1, -1, -1)
+        return self.encoder(torch.cat([x, avg], dim=1))
 
 
 def n_styles_for(output_size: int, generator_ada: bool = True) -> int:

@@ -1,4 +1,5 @@
 from .initializers import init_weights
-from .layers import Subsample
+from .layers import BatchNorm1d, BatchNorm2d, Dropout, Flatten, Subsample
 
-__all__ = ["Subsample", "init_weights"]
+__all__ = ["BatchNorm1d", "BatchNorm2d", "Dropout", "Flatten", "Subsample",
+           "init_weights"]

@@ -1,4 +1,6 @@
-from .optim import Ranger
+from .optim import Ranger, Stage3Schedule
 from .stage2 import Stage2Coach, Stage2Config
+from .stage3 import Stage3Config, Stage3Trainer
 
-__all__ = ["Ranger", "Stage2Coach", "Stage2Config"]
+__all__ = ["Ranger", "Stage2Coach", "Stage2Config", "Stage3Config",
+           "Stage3Schedule", "Stage3Trainer"]

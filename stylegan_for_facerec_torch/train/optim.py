@@ -1,4 +1,15 @@
-"""Ranger for stage 2: gradient centralisation -> RAdam -> scale by -lr ->
+"""Optimizers, schedules and masks of the training stages.
+
+Stage 3 (``stylegan_for_facerec_tpu/train/optim.py``'s SGD half): torch's
+own ``torch.optim.SGD(momentum=0.9, nesterov=False)``, whose update
+(g += wd p; buf = m buf + g; p -= lr buf) is ``sgd_torch``'s; the
+BatchNorm weight-decay exemption as parameter groups
+(``batchnorm_decay_mask``, ``sgd_param_groups``); ``Stage3Schedule``;
+``freeze_mask_for``, whose frozen parameters the trainer takes out of
+autograd, so that they get no gradient, no decay and no momentum change;
+``increasing_layer_decay_mask``.
+
+Stage 2, Ranger: gradient centralisation -> RAdam -> scale by -lr ->
 Lookahead(k=6, alpha=0.5), betas (0.95, 0.999), eps 1e-5.
 
 Step for step the JAX chain ``stylegan_for_facerec_tpu/train/optim.py::
@@ -26,12 +37,89 @@ takes the same steps as the JAX package, not merely close ones.
 
 from __future__ import annotations
 
-from typing import Iterable
+import dataclasses
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _F32 = np.float32
+
+
+def batchnorm_decay_mask(module: nn.Module) -> Dict[str, bool]:
+    """{parameter name: decays}: BatchNorm weights and biases are exempt,
+    every other parameter (convolutions, Linears, PReLU) decays; split by
+    module class."""
+    bn = set()
+    for name, mod in module.named_modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            bn.update(f"{name}.{k}" if name else k
+                      for k, _ in mod.named_parameters(recurse=False))
+    return {k: k not in bn for k, _ in module.named_parameters()}
+
+
+def sgd_param_groups(named_params: Iterable[Tuple[str, torch.Tensor]],
+                     decay_mask: Dict[str, bool],
+                     weight_decay: float) -> List[Dict]:
+    """Two ``torch.optim.SGD`` parameter groups: the decaying parameters
+    with ``weight_decay``, the exempt ones with 0."""
+    named = list(named_params)
+    return [{"params": [p for k, p in named if decay_mask[k]],
+             "weight_decay": weight_decay},
+            {"params": [p for k, p in named if not decay_mask[k]],
+             "weight_decay": 0.0}]
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage3Schedule:
+    """lr(step): linear warmup over ``warmup_batches``, then /1.5 from the
+    first step of each stage epoch in ``stages`` on (epoch >= s). Computed
+    in float32, as the JAX package's jnp schedule is."""
+
+    base_lr: float = 0.03
+    warmup_batches: int = 0
+    steps_per_epoch: int = 1
+    stages: Sequence[int] = ()
+    decay_factor: float = 1.5
+
+    def __call__(self, step: int) -> float:
+        epoch = int(step) // self.steps_per_epoch
+        n_decays = sum(1 for s in self.stages if epoch >= s)
+        lr = _F32(self.base_lr) / _F32(_F32(self.decay_factor) ** n_decays)
+        if self.warmup_batches > 0 and step < self.warmup_batches:
+            lr = (_F32(self.base_lr) * _F32(step + 1)
+                  / _F32(self.warmup_batches))
+        return float(_F32(lr))
+
+
+def freeze_mask_for(names: Iterable[str],
+                    frozen_prefixes: Sequence[str]) -> Dict[str, bool]:
+    """{parameter name: trains}: False under any of the dotted prefixes
+    (the stage-3 freeze of the encoder body in the first epochs)."""
+    return {k: not any(k == p or k.startswith(p + ".")
+                       for p in frozen_prefixes) for k in names}
+
+
+def increasing_layer_decay_mask(names: Sequence[str],
+                                first_layer_lr: float = 0.0
+                                ) -> Dict[str, float]:
+    """{parameter name: learning-rate ratio}: the 'weight' parameters are
+    counted in order; a weight and the parameters after it up to the next
+    weight ('bias') get first_layer_lr + k / n (1 - first_layer_lr) for
+    the k-th of n weights, so early layers learn slower; any other name
+    keeps 1."""
+    leaves = [k.split(".")[-1] for k in names]
+    n_weights = leaves.count("weight")
+    out, cur = {}, 0
+    for k, leaf in zip(names, leaves):
+        if leaf == "weight":
+            cur += 1
+        if leaf in ("weight", "bias") and n_weights:
+            out[k] = first_layer_lr + cur / n_weights * (1.0 - first_layer_lr)
+        else:
+            out[k] = 1.0
+    return out
 
 
 def _f32_pow(b: float, t: int) -> np.float32:

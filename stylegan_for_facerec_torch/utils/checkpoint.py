@@ -1,21 +1,36 @@
-"""The port's checkpoints. ``save_checkpoint``/``load_checkpoint``: one
-``torch.save`` file holding the state_dict, the out-of-band ``latent_avg``
-and, when known, ``avg_image`` ((H, W, 3) in [-1, 1]).
-``CheckpointManager``: the training runs' step-indexed files, which add
-the optimizer state and metadata to the same keys."""
+"""The port's checkpoints.
+
+  * ``save_checkpoint``/``load_checkpoint``: one ``torch.save`` file of a
+    ``PSp`` (inversion and stage 2): the state_dict, the out-of-band
+    ``latent_avg`` and, when known, ``avg_image`` ((H, W, 3) in [-1, 1]).
+  * ``CheckpointManager``: the training runs' step-indexed files. A
+    stage-2 file adds the Ranger state to the ``save_checkpoint`` keys; a
+    stage-3 file holds ``Stage3Trainer.state_dict()``'s payload
+    (``backbone`` state_dict with its ``avg_image`` buffer, ``head``,
+    ``optimizer``, ``opt_count``, ``avg_image``) and the epoch in its
+    metadata.
+  * ``load_stage2_encoder``: the stage-2 -> stage-3 handoff, a stage-2
+    ``PSp`` state_dict's ``encoder.input_layer`` and ``encoder.body`` into
+    a ``PSpFaceRec``; ``load_backbone``: a stage-3 file's backbone.
+"""
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
+from torch import nn
 
-from ..models.psp import PSp
+from ..models.psp import PSp, PSpFaceRec
 
 
 def save_checkpoint(path: str, model: PSp,
                     avg_image: Optional[torch.Tensor] = None) -> None:
+    """Write a ``PSp``'s weights, ``latent_avg`` and ``avg_image``: the
+    inversion CLI's input, and a stage-2 encoder that
+    ``load_stage2_encoder`` hands to stage 3. A stage-3 backbone is saved
+    with its trainer through ``CheckpointManager``."""
     torch.save({"state_dict": {k: v.cpu() for k, v in
                                model.state_dict().items()},
                 "latent_avg": model.latent_avg.cpu(),
@@ -24,13 +39,36 @@ def save_checkpoint(path: str, model: PSp,
 
 
 def load_checkpoint(path: str, model: PSp) -> Optional[torch.Tensor]:
-    """Load weights and ``latent_avg`` into ``model`` strictly; returns the
-    stored ``avg_image`` (on the CPU) or None."""
+    """Load a ``save_checkpoint`` file, or a stage-2 ``CheckpointManager``
+    file, into a ``PSp`` strictly (weights and ``latent_avg``); returns the
+    stored ``avg_image`` (on the CPU) or None. A stage-3 file loads with
+    ``load_backbone`` or ``Stage3Trainer.load_state_dict``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     with torch.no_grad():
         model.latent_avg.copy_(ckpt["latent_avg"])
     return ckpt.get("avg_image")
+
+
+def load_stage2_encoder(backbone: PSpFaceRec,
+                        stage2_state_dict: Mapping[str, torch.Tensor]
+                        ) -> None:
+    """The stage-2 -> stage-3 handoff: load a stage-2 ``PSp`` state_dict's
+    ``encoder.input_layer.*`` and ``encoder.body.*`` strictly into
+    ``backbone.encoder``; its output layer keeps its own weights. Raises
+    if the encoders' layouts differ."""
+    enc = backbone.encoder
+    for part in ("input_layer", "body"):
+        prefix = f"encoder.{part}."
+        sub = {k[len(prefix):]: v for k, v in stage2_state_dict.items()
+               if k.startswith(prefix)}
+        getattr(enc, part).load_state_dict(sub, strict=True)
+
+
+def load_backbone(path: str, backbone: nn.Module) -> None:
+    """Load a stage-3 checkpoint's backbone strictly into ``backbone``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    backbone.load_state_dict(ckpt["backbone"], strict=True)
 
 
 def load_metadata(path: str) -> Dict:

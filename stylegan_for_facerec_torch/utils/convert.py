@@ -9,26 +9,37 @@ rules are those of the reference torch export:
     this covers ``losses.perceptual.LPIPS`` too: its trunk convolutions
     (``net.0``, ``net.3``, ...) and its ``lin.{i}`` weights, (1, 1, C, 1)
     -> (1, C, 1, 1);
+  * ``nn.Linear``: (in, out) -> (out, in); after a ``Flatten`` of an
+    (H, W) map (the face-recognition ``output_layer.3``: (7, 7, 512)) the
+    input axis is also permuted from the JAX package's (H, W, C) order to
+    (C, H, W);
   * ``FullyConnectedLayer`` / ``EqualLinear``: (out, in) kept;
   * ``SynthesisPrologue.const``: HWC -> CHW;
-  * BatchNorm ``mean``/``var`` state -> ``running_mean``/``running_var``
-    (plus a zero ``num_batches_tracked``);
-  * ``noise_const`` and the mapping network's ``w_avg`` from state.
+  * BatchNorm2d and BatchNorm1d ``mean``/``var`` state ->
+    ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``);
+  * ``noise_const`` and the mapping network's ``w_avg`` from state;
+  * ``PSpFaceRec.avg_image``: state (H, W, 3) -> buffer (3, H, W);
+  * the margin heads of ``models.heads``: their parameters and buffers
+    under the JAX names, unchanged (a class weight stays (C, D)).
 
-``PSp.latent_avg`` is out of band: not in the state_dict, set by
+A stage-3 backbone thus loads whole (``PSpFaceRec``, ``Backbone``), and
+``load_stage3_from_jax`` fills a ``Stage3Trainer`` from the JAX trainer's
+trees. ``PSp.latent_avg`` is out of band: not in the state_dict, set by
 ``load_from_jax``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..models.psp import PSp
+from ..models import heads
+from ..models.psp import PSp, PSpFaceRec
 from ..models.stylegan2 import EqualLinear
+from ..nn.layers import Flatten
 from ..models.stylegan2_ada import (FullyConnectedLayer, MappingNetwork,
                                     SynthesisLayer, SynthesisPrologue,
                                     ToRGBLayer)
@@ -51,14 +62,55 @@ def _oihw(w) -> np.ndarray:
     return np.transpose(np.asarray(w), (3, 2, 0, 1))
 
 
-def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
+def _flattened_maps(model: nn.Module) -> Dict[str, Tuple[int, int]]:
+    """{name of a Linear that follows a Flatten in a Sequential: the
+    flattened map's (H, W)}."""
+    out = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, nn.Sequential):
+            continue
+        kids = list(mod.named_children())
+        for (_, a), (k, b) in zip(kids, kids[1:]):
+            if isinstance(a, Flatten) and isinstance(b, nn.Linear):
+                if a.hw is None:
+                    raise ValueError(f"{name}: a Flatten before a Linear "
+                                     f"needs its map's hw to convert")
+                out[f"{name}.{k}" if name else k] = a.hw
+    return out
+
+
+def _linear_weight(w, hw) -> np.ndarray:
+    """JAX (in, out) -> torch (out, in); with ``hw`` the input axis goes
+    from (H, W, C) to (C, H, W) order."""
+    w = np.asarray(w)
+    if hw is None:
+        return w.T
+    h, wd = hw
+    o = w.shape[1]
+    return w.reshape(h, wd, -1, o).transpose(3, 2, 0, 1).reshape(o, -1)
+
+
+def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping,
+                  hw=None) -> Dict[str, np.ndarray]:
     """The arrays that ``mod`` itself owns, under their torch names."""
     if isinstance(mod, nn.Conv2d):
         out = {"weight": _oihw(p["weight"])}
         if mod.bias is not None:
             out["bias"] = p["bias"]
         return out
-    if isinstance(mod, nn.BatchNorm2d):
+    if isinstance(mod, nn.Linear):
+        out = {"weight": _linear_weight(p["weight"], hw)}
+        if mod.bias is not None:
+            out["bias"] = p["bias"]
+        return out
+    if isinstance(mod, PSpFaceRec):
+        return {"avg_image": np.transpose(np.asarray(s["avg_image"]),
+                                          (2, 0, 1))}
+    if isinstance(mod, (heads._Head, heads.AmSoftmax)):
+        own = [k for k, _ in mod.named_parameters(recurse=False)]
+        own += [k for k, _ in mod.named_buffers(recurse=False)]
+        return {k: p[k] if k in p else s[k] for k in own}
+    if isinstance(mod, nn.modules.batchnorm._BatchNorm):
         return {"weight": p["weight"], "bias": p["bias"],
                 "running_mean": s["mean"], "running_var": s["var"],
                 "num_batches_tracked": np.asarray(0, dtype=np.int64)}
@@ -88,9 +140,10 @@ def from_jax(model: nn.Module, params: Mapping, state: Mapping
     key of ``model.state_dict()`` is not produced or a produced key is not
     the model's."""
     sd = {}
+    maps = _flattened_maps(model)
     for name, mod in model.named_modules():
         local = _local_arrays(mod, _subtree(params, name),
-                              _subtree(state, name))
+                              _subtree(state, name), maps.get(name))
         for k, v in local.items():
             sd[f"{name}.{k}" if name else k] = torch.from_numpy(
                 np.array(v, copy=True))
@@ -101,11 +154,26 @@ def from_jax(model: nn.Module, params: Mapping, state: Mapping
     return sd
 
 
-def load_from_jax(model: PSp, params: Mapping, state: Mapping) -> PSp:
-    """Load ``from_jax`` strictly into a ``PSp`` and set its out-of-band
-    ``latent_avg`` from ``state``."""
+def load_from_jax(model: nn.Module, params: Mapping,
+                  state: Mapping) -> nn.Module:
+    """Load ``from_jax`` strictly into ``model`` (a ``PSp``, a stage-3
+    ``PSpFaceRec`` or ``Backbone``, or any port module); a ``PSp`` also
+    gets its out-of-band ``latent_avg`` from ``state``."""
     model.load_state_dict(from_jax(model, params, state), strict=True)
-    with torch.no_grad():
-        model.latent_avg.copy_(torch.from_numpy(
-            np.asarray(state["latent_avg"], dtype=np.float32)))
+    if isinstance(model, PSp):
+        with torch.no_grad():
+            model.latent_avg.copy_(torch.from_numpy(
+                np.asarray(state["latent_avg"], dtype=np.float32)))
     return model
+
+
+def load_stage3_from_jax(trainer, params: Mapping, state: Mapping):
+    """Fill a ``train.stage3.Stage3Trainer`` from the JAX trainer's trees
+    (``params`` {"backbone", "head": {"weight"}}, ``state``
+    {"backbone"}): the backbone strictly, the (C, D) class weight as it
+    is. The optimizer state is not carried."""
+    load_from_jax(trainer.backbone, params["backbone"], state["backbone"])
+    with torch.no_grad():
+        trainer.head_weight.copy_(torch.from_numpy(
+            np.array(params["head"]["weight"], np.float32)))
+    return trainer

@@ -1,7 +1,8 @@
-"""Training logs: ``AverageMeter``, ``aggregate_loss_dicts`` and
-``MetricLogger`` (scalars as JSON lines, image grids as PNG), as
-``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb backend
-and profiler trace."""
+"""Training logs: ``AverageMeter``, ``aggregate_loss_dicts``,
+``MetricLogger`` (scalars as JSON lines, per-benchmark verification
+results, image grids as PNG) and ``StepTimer``, as
+``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb backend,
+ROC plot and profiler trace."""
 
 from __future__ import annotations
 
@@ -69,6 +70,16 @@ class MetricLogger:
                         if k not in ("step", "time"))
         print(f"[step {step}] {line}", flush=True)
 
+    def log_benchmark(self, step: int, db_name: str, acc: float,
+                      best_threshold: float, epoch: Optional[int] = None):
+        """A verification benchmark's accuracy and best threshold, as
+        ``<db_name>_Accuracy`` and ``<db_name>_Best_Threshold``."""
+        payload = {f"{db_name}_Accuracy": acc,
+                   f"{db_name}_Best_Threshold": best_threshold}
+        if epoch is not None:
+            payload["epoch"] = epoch
+        self.log(step, payload)
+
     def log_image(self, name: str, image, step: int) -> Optional[str]:
         """``image``: uint8 HWC array. Returns the written path (None
         without a log_dir)."""
@@ -84,3 +95,22 @@ class MetricLogger:
         if self._file:
             self._file.close()
             self._file = None
+
+
+class StepTimer:
+    """Host wall-clock per step with an EMA, for throughput reporting
+    (end a step with ``torch.cuda.synchronize()`` to time the card)."""
+
+    def __init__(self, beta: float = 0.9):
+        self.beta = beta
+        self.ema = None
+        self._t = None
+
+    def tic(self):
+        self._t = time.perf_counter()
+
+    def toc(self) -> float:
+        dt = time.perf_counter() - self._t
+        self.ema = dt if self.ema is None else \
+            self.beta * self.ema + (1 - self.beta) * dt
+        return dt

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from stylegan_for_facerec_torch.eval.inference import run_on_batch, tensor2im
+from stylegan_for_facerec_torch.models.irse import IR_50
 from stylegan_for_facerec_torch.models.psp import PSp, build_psp
 from stylegan_for_facerec_torch.tools import inference_iterative
+from stylegan_for_facerec_torch.train.stage3 import Stage3Config, Stage3Trainer
 from stylegan_for_facerec_torch.utils.checkpoint import (load_checkpoint,
                                                          save_checkpoint)
 from stylegan_for_facerec_torch.utils.device import resolve_device
@@ -21,23 +23,36 @@ from stylegan_for_facerec_torch.utils.device import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the stage-3 modules, which the walk below must reach
+STAGE3_MODULES = (
+    "data.dataset", "data.packed", "eval.verification",
+    "eval.verify_runner", "losses.focal", "models.heads", "train.stage3",
+    "tools.test_rfw", "tools.train_stage3", "utils.config")
+
+
 def test_port_imports_no_jax():
     """Every port module, and chip_smoke.py, import with jax blocked and
-    load nothing of the JAX package."""
+    load nothing of the JAX package; the walk covers the stage-3
+    modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         import stylegan_for_facerec_torch as pkg
+        walked = set()
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
+            walked.add(m.name)
         import chip_smoke
         bad = [m for m in sys.modules
                if m.startswith(("stylegan_for_facerec_tpu", "jax"))
                and sys.modules[m] is not None]
         assert not bad, bad
+        missing = [m for m in %r
+                   if "stylegan_for_facerec_torch." + m not in walked]
+        assert not missing, missing
         print("OK", len([m for m in sys.modules
                          if m.startswith("stylegan_for_facerec_torch")]))
-    """)
+    """ % (STAGE3_MODULES,))
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -52,6 +67,8 @@ def test_default_device_raises_without_gpu():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_psp(output_size=32, input_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Stage3Trainer(IR_50(32), Stage3Config(num_classes=4))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
