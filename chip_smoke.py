@@ -70,10 +70,36 @@ Phases, each fatal on failure (nonzero exit, no result line):
      and bf16: finite unit-norm
      embeddings, the first 32 within 1e-3 of the CPU's, 10-fold accuracy
      at least 0.99, no launch of B1, B1b, B2 or B2b; embed images/s.
+ 15. stage-1 GAN training at full width: the recipe of
+     configs/stage1_stylegan2_ada.json (StyleGAN2-ADA G at 128², z/w 512, 8
+     mapping layers; rosinality D at 128² with channel multiplier 2; batch
+     8, R1 every 16 steps, path length every 4, ADA target 0.6 every 4,
+     Adam (0, 0.99), g_ema 0.999), f32 with TF32 off, seeded weights and
+     images: steps 0-4 through train_step (R1 and path length at step 0,
+     path length and the ADA tick at step 4): finite losses, G, D and g_ema
+     moved, w_avg moved in the G steps only, pl_mean in the path-length
+     steps only, and each D and G step's B1/B1b/B2/B2b launches as PERF.md
+     writes them (D 37/26/10/0, with R1 37/52/10/0; G 24/24/10/10, with
+     path length 35/57/25/25); then at ada_p 0.5 every ADA group fires on
+     the card, the card's ADA matches the CPU's, and a common step runs;
+ 16. a first D step with R1 and a first G step with path length from the
+     same weights and draws at batch 4 (ada_p 0.5) on the card and on the
+     CPU: losses, rt, plp, pl_new, w_avg and every gradient (0.1 of the
+     tensor's largest plus 4 ulps), and the first Adam updates where the
+     gradient is far above eps;
+ 17. stage-1 ms and images/s an iteration (D step + G step): common, path
+     length, R1 + path length and the 16-step cycle's mean, at bf16 batch
+     64 (bench.py's stage-1 cell) and f32 batch 8 with TF32 off and on;
+     peak GiB; stage1_train_mfu (FlopCounterMode FLOPs of a common bf16
+     batch-64 iteration over its time and 989e12);
+ 18. profiles of a common and of an R1 + path-length bf16 batch-64
+     iteration (device time by kernel, busy share, B1/B1b/B2/B2b totals
+     and launches) and each kernel's path_ms over the common iteration's
+     shapes beside the summed bound.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
-as nvidia-smi reports them, and the one before that the stage-3 numbers
-as JSON. Exits nonzero without a GPU.
+as nvidia-smi reports them, and the ones before that the stage-1 and
+stage-3 numbers as JSON. Exits nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -118,6 +144,7 @@ from stylegan_for_facerec_torch.eval.verify_runner import (compute_embeddings,
                                                            perform_val)
 from stylegan_for_facerec_torch.losses.perceptual import LPIPS
 from stylegan_for_facerec_torch.models.psp import PSpFaceRec, build_psp
+from stylegan_for_facerec_torch.models.stylegan2 import discriminator_channels
 from stylegan_for_facerec_torch.models.stylegan2_ada import channels_for
 from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build, resample
@@ -128,11 +155,15 @@ from stylegan_for_facerec_torch.ops.resample import (
     smooth_upsample, smooth_upsample_grad, smooth_upsample_grad_plain,
     smooth_upsample_plain)
 from stylegan_for_facerec_torch.nn.layers import Dropout
+from stylegan_for_facerec_torch.train.ada_aug import apply_ada
+from stylegan_for_facerec_torch.train.stage1 import Stage1Trainer
 from stylegan_for_facerec_torch.train.stage2 import Stage2Coach, Stage2Config
 from stylegan_for_facerec_torch.train.stage3 import (Stage3Config,
                                                      Stage3Trainer)
 from stylegan_for_facerec_torch.utils.checkpoint import load_stage2_encoder
-from stylegan_for_facerec_torch.utils.config import Stage3Options, load_config
+from stylegan_for_facerec_torch.utils.config import (Stage1Config,
+                                                    Stage3Options,
+                                                    load_config)
 
 OUTPUT_SIZE, INPUT_SIZE, BATCH, ITERS = 256, 112, 8, 5
 CPU_BATCH, CPU_ITERS = 2, 2
@@ -182,6 +213,17 @@ S3_RATES = (("bf16", "bfloat16", False, 100), ("bf16", "bfloat16", False, 256),
 S3_PROFILE_BATCH = 256
 VERIFY_PAIRS, VERIFY_BATCH = 6000, 256
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense, NVIDIA data sheet
+# stage 1: the recipe's configuration file (128², batch 8), the steps of
+# the main path (0: R1 + path length, 1-3: neither, 4: path length and the
+# ADA tick), the card-vs-CPU batch, the rate batch (bench.py's stage-1
+# cell), and the launches of each step type at 128² (PERF.md, PR 6)
+STAGE1_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "stage1_stylegan2_ada.json")
+S1_STEPS, S1_CPU_BATCH, S1_RATE_BATCH = 5, 4, 64
+S1_LAUNCHES = {
+    ("d_step", False): (37, 26, 10, 0), ("d_step", True): (37, 52, 10, 0),
+    ("g_step", False): (24, 24, 10, 10), ("g_step", True): (35, 57, 25, 25)}
+S1_CYCLE = 16                 # steps of one R1 period
 
 
 def fail(msg: str):
@@ -204,6 +246,104 @@ def on_path_shapes(batch: int = BATCH):
     b2 = [(batch, ch[r], r // 2, r // 2) for r in res[1:]]
     b2 += [(batch, 3, r // 2, r // 2) for r in res[1:]]
     return b1, b2
+
+
+def stage1_shapes(batch: int, size: int = 128):
+    """The shapes one stage-1 G forward and D forward give the kernels at
+    ``size``: ``{"g_b1", "d_b1", "b2"}``, each ``{shape: launches}``. G's
+    activations clamp at 256 (11 at 128²), D's ``fused_leaky_relu`` does
+    not clamp (13, the last on (N, 512) at ``final_linear.0``); B2 runs
+    in G's 5 up layers and 5 image skips."""
+    res = [2 ** i for i in range(2, int(math.log2(size)) + 1)]
+    ch = channels_for(res)
+    g_b1 = {(batch, ch[4], 4, 4): 1}
+    b2 = {}
+    for r in res[1:]:
+        g_b1[(batch, ch[r], r, r)] = 2
+        b2[(batch, ch[r], r // 2, r // 2)] = 1
+        b2[(batch, 3, r // 2, r // 2)] = 1
+    dch = discriminator_channels(2)
+    d_b1 = {}
+
+    def add(shape):
+        d_b1[shape] = d_b1.get(shape, 0) + 1
+
+    add((batch, dch[size], size, size))
+    for i in range(int(math.log2(size)), 2, -1):
+        r = 2 ** i
+        add((batch, dch[r], r, r))
+        add((batch, dch[r // 2], r // 2, r // 2))
+    add((batch, dch[4], 4, 4))
+    add((batch, dch[4]))
+    return {"g_b1": g_b1, "d_b1": d_b1, "b2": b2}
+
+
+def compare_stage1(gen, dname, dtype, errs):
+    """Stage 1's new uses of the kernels against the plain versions: B1
+    and B1b (dx, db, double backward) with no clamp at every shape of D's
+    activations at 128², batch 8, bit for bit; and B2b's backward, which
+    is B2 on a gradient, against the autograd of
+    ``smooth_upsample_grad_plain`` at every shape of the stage-1 G's
+    upsamples, with B2's tolerance. Returns the shapes checked."""
+    shapes = stage1_shapes(BATCH)
+    bits = torch.int32 if dname == "f32" else torch.int16
+    for shape in shapes["d_b1"]:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(
+            dtype).requires_grad_()
+        b = torch.randn(shape[1], generator=gen, device="cuda"
+                        ).requires_grad_()
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g.requires_grad_()
+        gg = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        y = bias_act(x, b, "lrelu", 1.0, None)
+        want_y = bias_act_plain(x.detach().float(), b.detach(), "lrelu", 1.0,
+                                None).to(dtype)
+        if not torch.equal(y.detach().view(bits), want_y.view(bits)):
+            fail(f"B1 {dname} {shape} no clamp: not bit-equal to the plain "
+                 f"version")
+        errs[("bias_act", dname)] = max(
+            errs[("bias_act", dname)],
+            (y.detach().float() - want_y.float()).abs().max().item())
+        dx, db = torch.autograd.grad(y, (x, b), g, create_graph=True)
+        (ddg,) = torch.autograd.grad(dx, g, gg)
+        xd, bd = x.detach(), b.detach()
+        want = bias_act_grad_plain(g.detach(), xd, bd, 0.2, SQRT2, None)
+        want_dd = bias_act_grad_plain(gg, xd, bd, 0.2, SQRT2, None)
+        err = max(b1b_check(dname, shape, dx, want, "dx, no clamp"),
+                  b1b_check(dname, shape, ddg, want_dd,
+                            "double backward, no clamp"))
+        dims = [d for d in range(len(shape)) if d != 1]
+        want_db = want.float().sum(dims)
+        tol_db = 1e-5 * want.float().abs().sum(dims).max().item()
+        if not (db - want_db).abs().max().item() <= tol_db:
+            fail(f"B1b {dname} {shape} no clamp: db off by "
+                 f"{(db - want_db).abs().max().item():.3e}")
+        errs[("bias_act_grad", dname)] = max(
+            errs[("bias_act_grad", dname)], err)
+    for shape in shapes["b2"]:
+        n, c, h, w = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+        g = torch.randn((n, c, 2 * h, 2 * w), generator=gen,
+                        device="cuda").to(dtype).requires_grad_()
+        gg = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        (dx,) = torch.autograd.grad(smooth_upsample(x), x, g,
+                                    create_graph=True)
+        before = smooth_upsample.launches
+        (got,) = torch.autograd.grad(dx, g, gg)
+        if smooth_upsample.launches != before + 1:
+            fail(f"B2b's backward at {shape} did not launch B2 once")
+        g2 = g.detach().requires_grad_()
+        (want,) = torch.autograd.grad(smooth_upsample_grad_plain(g2), g2, gg)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (2e-6 if dname == "f32" else 2.0 ** -7) * \
+            gg.float().abs().max().item()
+        if not err <= tol:
+            fail(f"B2b's backward (B2) {dname} {shape}: max err {err:.3e} > "
+                 f"{tol:.3e}")
+        errs[("smooth_upsample", dname)] = max(
+            errs[("smooth_upsample", dname)], err)
+    return shapes
 
 
 def b1_launches(shape) -> int:
@@ -440,13 +580,17 @@ def phase_compare(gen):
                 errs[("smooth_upsample", dname)], err.max().item())
         if staged < 3:
             fail(f"B2 {dname}: only {staged} checks went through the staging")
+        s1 = compare_stage1(gen, dname, dtype, errs)
     torch.cuda.synchronize()
     log(f"phase 2: kernels agree with their plain versions at "
         f"{len(b1_shapes)} B1/B1b and {len(b2_shapes)} B2/B2b shapes (the "
         f"inversion and training paths' at batch {BATCH}) in f32 and "
         f"bf16, B1 and B1b bit for bit; B1/B1b and B2/B2b also at "
         f"{len(B1_RAGGED)} and {len(B2_RAGGED)} ragged shapes and at "
-        f"storage offset 1 (B2 staged and not); max abs err " + ", ".join(
+        f"storage offset 1 (B2 staged and not); stage 1: B1 and B1b "
+        f"(dx, db, double backward) without clamp at D's {len(s1['d_b1'])} "
+        f"activation shapes at 128² bit for bit, B2b's backward (B2) at "
+        f"G's {len(s1['b2'])} upsample shapes; max abs err " + ", ".join(
             f"{k}/{d}={v:.3e}" for (k, d), v in errs.items()))
     return errs
 
@@ -1174,6 +1318,419 @@ def phase_verify(backbone) -> dict:
     return out, launches
 
 
+# -- stage 1 -----------------------------------------------------------------
+
+def stage1_trainer(device: str, compute_dtype: str = "float32"
+                   ) -> Stage1Trainer:
+    """The recipe of ``STAGE1_CONFIG`` at full width (G at 128², z/w 512,
+    8 mapping layers; D with channel multiplier 2), weights from seed 0
+    drawn on the CPU, so every device gets the same."""
+    cfg = dataclasses.replace(load_config(Stage1Config, STAGE1_CONFIG),
+                              compute_dtype=compute_dtype)
+    return Stage1Trainer(cfg, device=device, seed=0)
+
+
+def stage1_reals(batch: int, seed: int, size: int = 128) -> torch.Tensor:
+    """NHWC images in [-1, 1], drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((batch, size, size, 3), generator=g) * 2 - 1
+
+
+def to_device(obj, device):
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [to_device(v, device) for v in obj]
+    return obj.to(device)
+
+
+def record_steps(trainer) -> list:
+    """Wrap the trainer's ``d_step`` and ``g_step`` (on the instance) so each
+    call appends (name, regularised, launches in the call, w_avg moved,
+    pl_mean moved) to the returned list."""
+    record = []
+    for name in ("d_step", "g_step"):
+        fn = getattr(trainer, name)
+
+        def wrapped(*args, _fn=fn, _name=name):
+            w_avg, pl_mean = (trainer.G.mapping.w_avg.clone(),
+                              trainer.pl_mean.clone())
+            before = read_launches()
+            out = _fn(*args)
+            after = read_launches()
+            record.append((_name, bool(args[-1]),
+                           tuple(after[k] - before[k] for k in KERNELS),
+                           not torch.equal(w_avg, trainer.G.mapping.w_avg),
+                           not torch.equal(pl_mean, trainer.pl_mean)))
+            return out
+        setattr(trainer, name, wrapped)
+    return record
+
+
+def check_step_record(record, label: str):
+    for name, reg, launches, w_moved, pl_moved in record:
+        if launches != S1_LAUNCHES[(name, reg)]:
+            fail(f"{label}: {name} (regularised {reg}) launched B1/B1b/B2/"
+                 f"B2b {launches}, expected {S1_LAUNCHES[(name, reg)]}")
+        if w_moved != (name == "g_step"):
+            fail(f"{label}: w_avg moved {w_moved} in a {name}")
+        if pl_moved != (name == "g_step" and reg):
+            fail(f"{label}: pl_mean moved {pl_moved} in a {name} "
+                 f"(path length {reg})")
+
+
+def moved_share(before: dict, module) -> float:
+    after = dict(module.named_parameters())
+    return sum(not torch.equal(v, after[k]) for k, v in before.items()) \
+        / len(before)
+
+
+def ada_groups_fired(prm) -> list:
+    """The ADA groups with at least one image augmented in ``prm``."""
+    b, c = prm["blit"], prm["corrupt"]
+    fired = {"blit": bool((b["flip"] | (b["rotk"] != 0) | (b["ty"] != 0)
+                           | (b["tx"] != 0)).any()),
+             "geom": bool(prm["geom"]["active"].any()),
+             "color": bool(prm["color"]["active"].any()),
+             "filter": bool(prm["filter"]["active"].any()),
+             "corrupt": bool((c["do_noise"] | c["cut"]).any())}
+    return [k for k, v in fired.items() if v]
+
+
+def phase_stage1_train():
+    """Phase 15: the stage-1 main path, steps 0-4 of the recipe at f32
+    batch 8 through ``train_step``; then one step at ada_p 0.5."""
+    tr = stage1_trainer("cuda")
+    batch = tr.cfg.batch_size
+    reals = stage1_reals(batch, seed=30).cuda()
+    g0, d0, e0 = ({k: v.detach().clone() for k, v in m.named_parameters()}
+                  for m in (tr.G, tr.D, tr.g_ema))
+    record = record_steps(tr)
+    reset_launches()
+    t0 = time.perf_counter()
+    logs = [tr.train_step(reals) for _ in range(S1_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    logs = [{k: v.item() for k, v in lg.items()} for lg in logs]
+    if not all(math.isfinite(v) for lg in logs for v in lg.values()):
+        fail(f"non-finite stage-1 logs {logs}")
+    check_step_record(record, "phase 15")
+    kinds = [(r[0], r[1]) for r in record]
+    want_kinds = [("d_step", True), ("g_step", True)] + [
+        ("d_step", False), ("g_step", False)] * 3 + [("d_step", False),
+                                                     ("g_step", True)]
+    if kinds != want_kinds:
+        fail(f"phase 15: step types {kinds}, expected {want_kinds}")
+    shares = {n: moved_share(b, m) for n, b, m in (
+        ("G", g0, tr.G), ("D", d0, tr.D), ("g_ema", e0, tr.g_ema))}
+    if min(shares.values()) < 0.9:
+        fail(f"phase 15: too few tensors moved {shares}")
+    if tr.rt_count.item() != 0 or tr.step != S1_STEPS:
+        fail(f"phase 15: the ADA tick at step 4 did not reset r_t "
+             f"({tr.rt_count.item()}) or the step is {tr.step}")
+    if not torch.equal(tr.g_ema.mapping.w_avg, tr.G.mapping.w_avg):
+        fail("phase 15: g_ema does not carry G's w_avg")
+    # every augmentation group on the card: ada_p 0.5, one common step,
+    # and the card's ADA on the reals against the CPU's
+    tr.ada_p = torch.tensor(0.5, device=tr.device)
+    d_draws, g_draws = tr.draw(batch, False)
+    for label, prm in (("reals", d_draws["ada_real"]),
+                       ("D fakes", d_draws["ada_fake"]),
+                       ("G fakes", g_draws["ada_fake"])):
+        fired = ada_groups_fired(prm)
+        if len(fired) != 5:
+            fail(f"phase 15: at ada_p 0.5 only {fired} fired on the {label}")
+    aug = apply_ada(reals.permute(0, 3, 1, 2), d_draws["ada_real"]).cpu()
+    want = apply_ada(reals.cpu().permute(0, 3, 1, 2),
+                     to_device(d_draws["ada_real"], "cpu"))
+    ada_err = (aug - want).abs().max().item()
+    if not ada_err <= 1e-5 * want.abs().max().item():
+        fail(f"phase 15: ADA card vs CPU differ by {ada_err:.3e}")
+    n_rec = len(record)
+    half = {**tr.d_step(reals, d_draws, False), **tr.g_step(g_draws, False)}
+    check_step_record(record[n_rec:], "phase 15, ada_p 0.5")
+    if not all(math.isfinite(v.item()) for v in half.values()):
+        fail(f"phase 15: non-finite logs at ada_p 0.5 {half}")
+    per_step = {f"{n}{'_reg' if r else ''}": dict(zip(KERNELS, la))
+                for n, r, la, _, _ in record}
+    log(f"phase 15: Stage1Trainer recipe (G 128², D 128² x2), f32 batch "
+        f"{batch}, steps 0-{S1_STEPS - 1} in {dt:.2f} s (first calls): "
+        + "; ".join(f"step {i} d_loss {lg['d_loss']:.4f} g_loss "
+                    f"{lg['g_loss']:.4f} rt {lg['rt']:+.2f} plp "
+                    f"{lg['plp']:.4f}" for i, lg in enumerate(logs))
+        + f"; moved {shares}; launches {launches} (per step type "
+        f"{per_step}); ada_p 0.5: all 5 groups fired, ADA card vs CPU "
+        f"{ada_err:.2e}, d_loss {half['d_loss'].item():.4f} g_loss "
+        f"{half['g_loss'].item():.4f}")
+    return tr, launches, per_step, logs
+
+
+def grad_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| over phase 8's tolerance: 0.1 of the tensor's largest
+    plus 4 f32 ulps of each element."""
+    tol = (CPU_UPDATE_TOL * want.abs().max()
+           + 4 * torch.finfo(torch.float32).eps * want.abs())
+    return ((got - want).abs() / tol.clamp_min(1e-30)).max().item()
+
+
+def compare_params(card_mod, cpu_mod, label: str) -> dict:
+    """Gradients of every parameter against phase 8's tolerance."""
+    worst, worst_k, sq_d, sq = 0.0, None, 0.0, 0.0
+    for (k, pc), pu in zip(card_mod.named_parameters(),
+                           cpu_mod.parameters()):
+        if pu.grad is None:
+            if pc.grad is not None:
+                fail(f"{label}: {k} has a gradient on the card only")
+            continue
+        got, want = pc.grad.detach().cpu(), pu.grad.detach()
+        r = grad_ratio(got, want)
+        if r > worst:
+            worst, worst_k = r, k
+        sq_d += (got - want).square().sum().item()
+        sq += want.square().sum().item()
+    if worst > 1.0:
+        fail(f"{label}: gradient {worst_k} differs by {worst:.2f}x the "
+             f"tolerance")
+    return {"worst_grad_ratio": worst, "worst_grad_tensor": worst_k,
+            "grad_norm_rel": math.sqrt(sq_d / sq)}
+
+
+def compare_adam(card_mod, cpu_mod, card_opt, cpu_opt, lr, label) -> int:
+    """The first Adam steps where the gradient is far above eps and
+    round-off (|g| >= 1e-3 of the tensor's largest and >= 1e4 eps): there
+    the update is -lr g / (|g| + eps) = -lr sign(g) (1 - eps / |g|) on both
+    sides, within 1e-4 lr plus 4 ulps of the parameter, even where the two
+    devices' g differ by their size. Returns the number of elements
+    compared."""
+    before = [p.detach().clone() for p in cpu_mod.parameters()]
+    card_before = [p.detach().to("cpu", copy=True)
+                   for p in card_mod.parameters()]
+    card_opt.step()
+    cpu_opt.step()
+    n = 0
+    for (k, pc), pu, b, cb in zip(card_mod.named_parameters(),
+                                  cpu_mod.parameters(), before, card_before):
+        if pu.grad is None:
+            continue
+        g = pu.grad.abs()
+        mask = (g >= 1e-3 * g.max()) & (g >= 1e-4)
+        du = ((pc.detach().cpu() - cb) - (pu.detach() - b)).abs()
+        # p + u rounds once on each device: 4 f32 ulps of the parameter
+        tol = 1e-4 * lr + 4 * torch.finfo(torch.float32).eps * b.abs()
+        ratio = (du / tol)[mask]
+        if ratio.numel() and ratio.max().item() > 1.0:
+            fail(f"{label}: Adam update of {k} differs by "
+                 f"{du[mask].max().item():.3e} (lr {lr})")
+        n += int(mask.sum())
+    return n
+
+
+def phase_stage1_cpu_reference():
+    """Phase 16: a first D step with R1 and a first G step with path
+    length from the same weights and draws (ada_p 0.5) at batch
+    S1_CPU_BATCH on the card and on the CPU's plain versions."""
+    card, cpu = stage1_trainer("cuda"), stage1_trainer("cpu")
+    for t in (card, cpu):
+        t.ada_p = torch.tensor(0.5, device=t.device)
+    reals = stage1_reals(S1_CPU_BATCH, seed=31)
+    d_draws, g_draws = cpu.draw(S1_CPU_BATCH, True)
+    out = {}
+    t0 = time.perf_counter()
+    for t, r, dd in ((card, reals.to(card.device),
+                      to_device(d_draws, card.device)),
+                     (cpu, reals, d_draws)):
+        loss, rt = t.d_loss(r, dd, True)
+        loss.backward()
+        out.setdefault("d", []).append((loss.item(), rt.item()))
+    (dlc, rc), (dlu, ru) = out["d"]
+    if abs(dlc - dlu) > CPU_REL_TOL * abs(dlu) or rc != ru:
+        fail(f"phase 16: D loss/rt card {dlc}/{rc} vs CPU {dlu}/{ru}")
+    d_cmp = compare_params(card.D, cpu.D, "phase 16 D step")
+    d_n = compare_adam(card.D, cpu.D, card.opt_d, cpu.opt_d, card.cfg.lr_d,
+                       "phase 16 D step")
+    for t, gd in ((card, to_device(g_draws, card.device)), (cpu, g_draws)):
+        t.D.requires_grad_(False)
+        loss, plp, pl_new = t.g_loss(gd, True)
+        loss.backward()
+        out.setdefault("g", []).append(
+            (loss.item(), plp.item(), pl_new.item(),
+             t.G.mapping.w_avg.detach().cpu()))
+    (lc, pc, nc, wc), (lu, pu, nu, wu) = out["g"]
+    for name, a, b in (("loss", lc, lu), ("plp", pc, pu),
+                       ("pl_new", nc, nu)):
+        if abs(a - b) > CPU_REL_TOL * abs(b):
+            fail(f"phase 16: G {name} card {a} vs CPU {b}")
+    w_err = (wc - wu).abs().max().item()
+    if w_err > CPU_REL_TOL * wu.abs().max().item():
+        fail(f"phase 16: w_avg card vs CPU {w_err:.3e}")
+    g_cmp = compare_params(card.G, cpu.G, "phase 16 G step")
+    g_n = compare_adam(card.G, cpu.G, card.opt_g, cpu.opt_g, card.cfg.lr_g,
+                       "phase 16 G step")
+    dt = time.perf_counter() - t0
+    res = {"d_loss": out["d"], "g": [o[:3] for o in out["g"]],
+           "w_avg_err": w_err, "d": d_cmp, "g_grads": g_cmp,
+           "adam_elements": {"d": d_n, "g": g_n}}
+    log(f"phase 16: first D step (R1) and G step (path length) card vs "
+        f"CPU at batch {S1_CPU_BATCH}, ada_p 0.5: D loss {dlc:.6f} vs "
+        f"{dlu:.6f}, rt {rc:+.2f}; G loss / plp / pl_new {lc:.6f} / "
+        f"{pc:.6f} / {nc:.6f} vs {lu:.6f} / {pu:.6f} / {nu:.6f}; w_avg "
+        f"{w_err:.2e}; "
+        f"worst D gradient {d_cmp['worst_grad_tensor']} at "
+        f"{d_cmp['worst_grad_ratio']:.3f} of its tolerance (norm "
+        f"{d_cmp['grad_norm_rel']:.2e}), worst G gradient "
+        f"{g_cmp['worst_grad_tensor']} at {g_cmp['worst_grad_ratio']:.3f} "
+        f"(norm {g_cmp['grad_norm_rel']:.2e}); Adam updates agree on "
+        f"{d_n} + {g_n} elements; {dt:.1f} s (CPU included)")
+    return res
+
+
+S1_KINDS = {"common": 1, "plp": 4, "r1_plp": 0}   # a step of each type
+
+
+def stage1_rate(tr, reals, kind: str, reps: int) -> float:
+    """ms per iteration (D step + G step) of step type ``kind``."""
+    step = S1_KINDS[kind]
+    tr.train_step(reals, step=step)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logs = tr.train_step(reals, step=step)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    if not all(math.isfinite(v.item()) for v in logs.values()):
+        fail(f"non-finite stage-1 logs at {kind}: {logs}")
+    return ms
+
+
+def stage1_rates(tr, batch: int, compute_dtype: str, tf32: bool) -> dict:
+    tr.cfg = dataclasses.replace(tr.cfg, compute_dtype=compute_dtype)
+    torch.backends.cudnn.allow_tf32 = tf32
+    reals = stage1_reals(batch, seed=32).cuda()
+    ms = {k: stage1_rate(tr, reals, k, 3) for k in ("common", "plp")}
+    torch.cuda.reset_peak_memory_stats()
+    ms["r1_plp"] = stage1_rate(tr, reals, "r1_plp", 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.backends.cudnn.allow_tf32 = False
+    # one R1 period: step 0 R1 + path length, every 4th path length
+    n_plp = S1_CYCLE // tr.cfg.lazy_path_penalty_interval - 1
+    cycle = (ms["r1_plp"] + n_plp * ms["plp"]
+             + (S1_CYCLE - 1 - n_plp) * ms["common"]) / S1_CYCLE
+    out = {f"{k}_ms": v for k, v in ms.items()}
+    out.update({f"{k}_images_per_s": batch / v * 1e3 for k, v in ms.items()},
+               cycle_ms=cycle, cycle_images_per_s=batch / cycle * 1e3,
+               peak_gib=peak)
+    return out
+
+
+def stage1_path_times(gen, batch: int, dtype) -> dict:
+    """Each kernel at each shape of one common stage-1 iteration at
+    ``batch``, with its launches in that iteration: G forwards 2 (D step,
+    G step), D forwards 3 (reals, fakes; fakes), D backwards 3, G
+    backwards 1."""
+    elem = torch.finfo(dtype).bits // 8
+    sh = stage1_shapes(batch)
+    out = {k: [] for k in KERNELS}
+
+    def add(k, shape, launches, fn, bytes_, ops):
+        out[k].append(dict(
+            shape=list(shape), launches=launches, ms=cuda_time_ms(fn),
+            bound_ms=max(bytes_ / HBM_BYTES_PER_S,
+                         ops / F32_FLOPS_PER_S) * 1e3))
+
+    for key, clamp, fwd, bwd in (("g_b1", 256.0, 2, 1),
+                                 ("d_b1", None, 3, 3)):
+        for shape, k in sh[key].items():
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            b = torch.randn(shape[1], generator=gen, device="cuda")
+            n = x.numel()
+            add("bias_act", shape, k * fwd,
+                lambda: bias_act(x, b, "lrelu", 1.0, clamp),
+                2 * n * elem + 4 * b.numel(), B1_FLOPS_PER_ELEM * n)
+            add("bias_act_grad", shape, k * bwd,
+                lambda: bias_act_grad(g, x, b, 0.2, SQRT2, clamp),
+                3 * n * elem + 4 * b.numel(), B1B_FLOPS_PER_ELEM * n)
+    for shape in sh["b2"]:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        nb, c, h, w = shape
+        g = torch.randn((nb, c, 2 * h, 2 * w), generator=gen,
+                        device="cuda").to(dtype)
+        n = x.numel()
+        add("smooth_upsample", shape, 2, lambda: smooth_upsample(x),
+            5 * n * elem, B2_FLOPS_PER_INPUT * n)
+        add("smooth_upsample_grad", g.shape, 1,
+            lambda: smooth_upsample_grad(g), 5 * n * elem,
+            B2B_FLOPS_PER_INPUT * n)
+    return out
+
+
+def phase_stage1_rates(tr, gen) -> dict:
+    """Phases 17 and 18: iteration rates (bf16 batch 64, f32 batch 8 with
+    TF32 off and on), peak memory, MFU of a common bf16 batch-64
+    iteration, its profile and the kernels' path_ms over it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rates = {}
+    for name, cdt, tf32, batch in (
+            ("bf16", "bfloat16", False, S1_RATE_BATCH),
+            ("f32", "float32", False, tr.cfg.batch_size),
+            ("tf32", "float32", True, tr.cfg.batch_size)):
+        r = stage1_rates(tr, batch, cdt, tf32)
+        rates[f"{name}_batch{batch}"] = r
+        log(f"phase 17: stage-1 {name} batch {batch}: common iteration "
+            f"{r['common_ms']:.1f} ms ({r['common_images_per_s']:.1f} "
+            f"images/s), path length {r['plp_ms']:.1f} ms, R1 + path "
+            f"length {r['r1_plp_ms']:.1f} ms ({r['r1_plp_images_per_s']:.1f}"
+            f" images/s), {S1_CYCLE}-step cycle {r['cycle_ms']:.1f} ms an "
+            f"iteration ({r['cycle_images_per_s']:.1f} images/s); peak "
+            f"{r['peak_gib']:.1f} GiB")
+    b = S1_RATE_BATCH
+    tr.cfg = dataclasses.replace(tr.cfg, compute_dtype="bfloat16")
+    reals = stage1_reals(b, seed=33).cuda()
+    with FlopCounterMode(display=False) as fc:
+        tr.train_step(reals, step=S1_KINDS["common"])
+    flops = fc.get_total_flops()
+    it_s = rates[f"bf16_batch{b}"]["common_ms"] / 1e3
+    mfu = flops / it_s / BF16_FLOPS_PER_S
+    log(f"phase 17: stage1_train_mfu {mfu:.4f} ({flops / 1e12:.3f} TFLOP a "
+        f"common bf16 batch-{b} iteration, {flops / b / 1e9:.1f} GFLOP an "
+        f"image, over {it_s * 1e3:.1f} ms against "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s)")
+    details = {}
+    totals = profile_breakdown(
+        f"phase 18: profile of a common bf16 batch-{b} stage-1 iteration",
+        lambda: tr.train_step(reals, step=S1_KINDS["common"]), top=16,
+        details=details)
+    want = {k: S1_LAUNCHES[("d_step", False)][i]
+            + S1_LAUNCHES[("g_step", False)][i]
+            for i, k in enumerate(KERNELS)}
+    if totals and any(totals[k][1] != want[k] for k in KERNELS):
+        fail(f"phase 18: profiled launches {totals}, expected {want}")
+    reg_details = {}
+    reg_totals = profile_breakdown(
+        f"phase 18: profile of an R1 + path-length bf16 batch-{b} stage-1 "
+        f"iteration", lambda: tr.train_step(reals, step=S1_KINDS["r1_plp"]),
+        details=reg_details)
+    want = {k: S1_LAUNCHES[("d_step", True)][i]
+            + S1_LAUNCHES[("g_step", True)][i]
+            for i, k in enumerate(KERNELS)}
+    if reg_totals and any(reg_totals[k][1] != want[k] for k in KERNELS):
+        fail(f"phase 18: profiled R1 + path-length launches {reg_totals}, "
+             f"expected {want}")
+    path = stage1_path_times(gen, b, torch.bfloat16)
+    sums = path_sums(path)
+    for k, (ms, bound) in sums.items():
+        log(f"phase 18: {k} over one common bf16 batch-{b} iteration's "
+            f"{sum(r['launches'] for r in path[k])} launches: {ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({bound / ms:.1%} of the bound)")
+    return {"rates": rates, "iteration_flops": flops,
+            "stage1_train_mfu": mfu, f"profile_bf16_batch{b}": details,
+            f"profile_r1_plp_bf16_batch{b}": reg_details,
+            "kernel_totals": totals, "kernel_totals_r1_plp": reg_totals,
+            "path": {k: {"path_ms": v[0], "path_bound_ms": v[1]}
+                     for k, v in sums.items()}}
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1260,6 +1817,13 @@ def main():
     del trainer
     stage3["verify"], s3_verify_launches = phase_verify(handed)
     del handed
+
+    tr1, s1_launches, s1_per_step, s1_logs = phase_stage1_train()
+    stage1 = {"launches_steps_0_4": s1_launches,
+              "launches_per_step_type": s1_per_step, "logs": s1_logs,
+              "cpu_vs_card": phase_stage1_cpu_reference()}
+    stage1.update(phase_stage1_rates(tr1, gen))
+    del tr1
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -1279,6 +1843,7 @@ def main():
             "launches_inversion": inv_launches[name],
             "launches_stage3": s3_train_launches[name]
             + s3_verify_launches[name],
+            "launches_stage1": s1_launches[name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -1289,6 +1854,7 @@ def main():
         f"{d}_batch{b}": v for (d, b), v in rates.items()},
         "train": train_rates}))
     print(json.dumps({"stage3": stage3}))
+    print(json.dumps({"stage1": stage1}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,4 +14,10 @@ margin heads, focal loss, the SGD trainer, the face datasets, packed
 shards and the prefetch to the card, RFW verification, and the training
 and verification CLIs. No kernel of its own: its path runs cuDNN and
 PyTorch operations only.
+Slice 4: stage-1 StyleGAN2-ADA GAN pretraining: the rosinality
+discriminator (its activations through B1/B1b, its blurs through
+``ops/upfirdn2d.py``), ADA, the mapping network's ``w_avg`` EMA and
+truncation, the trainer with lazy R1 (B1b's double backward) and path
+length (B2b's backward, B2), g_ema, FID, the stage-1 CLI and the
+stage-1 -> stage-2 handoff.
 """

@@ -4,7 +4,12 @@ Every ``SynthesisLayer`` runs modulated conv -> smooth 2x upsample (kernel
 B2 on the card) -> noise -> bias + lrelu + gain + clamp (kernel B1 on the
 card); every block upsamples its image skip with B2 too. ``noise_mode`` is
 "const" (the stored buffers, the inversion path), "none", or "random",
-which draws from an explicit ``torch.Generator``.
+which draws from an explicit ``torch.Generator`` or takes given ``noises``
+(one (N, 1, res, res) tensor per synthesis layer, in forward order, as
+stage-1 training gathers its draws).
+
+The mapping network tracks ``w_avg`` in train mode and applies the
+truncation trick, as ``stylegan_for_facerec_tpu/models/stylegan2_ada.py``.
 """
 
 from __future__ import annotations
@@ -69,26 +74,50 @@ class FullyConnectedLayer(nn.Module):
 
 class MappingNetwork(nn.Module):
     """z -> w: 2nd-moment normalisation, ``num_layers`` equalized FCs (lrelu,
-    lr_mul 0.01), broadcast to ``num_ws``. ``w_avg`` is carried as a buffer
-    so that the weights load strictly; its training-time update and the
-    truncation trick come with stage-1 training."""
+    lr_mul 0.01), broadcast to ``num_ws``, truncation toward ``w_avg``.
+
+    In train mode each forward moves the ``w_avg`` buffer toward the
+    batch's mean w (detached), ``w_avg = mean + beta (w_avg - mean)``,
+    unless ``skip_w_avg_update``; ``w_avg_beta=None`` tracks no
+    ``w_avg``, and truncation then raises."""
 
     def __init__(self, z_dim: int = 512, w_dim: int = 512, num_ws: int = 18,
-                 num_layers: int = 8, lr_multiplier: float = 0.01):
+                 num_layers: int = 8, lr_multiplier: float = 0.01,
+                 w_avg_beta: Optional[float] = 0.995):
         super().__init__()
         self.num_ws = num_ws
+        self.w_avg_beta = w_avg_beta
         feats = [z_dim] + [w_dim] * num_layers
         self.layers = nn.ModuleList(
             FullyConnectedLayer(feats[i], feats[i + 1], activation="lrelu",
                                 lr_multiplier=lr_multiplier)
             for i in range(num_layers))
-        self.register_buffer("w_avg", torch.zeros(w_dim))
+        self.register_buffer("w_avg", torch.zeros(w_dim)
+                             if w_avg_beta is not None else None)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0,
+                truncation_cutoff: Optional[int] = None,
+                skip_w_avg_update: bool = False) -> torch.Tensor:
         x = normalize_2nd_moment(z)
         for layer in self.layers:
             x = layer(x)
-        return x[:, None, :].repeat(1, self.num_ws, 1)
+        if self.w_avg is not None and self.training and not skip_w_avg_update:
+            with torch.no_grad():
+                mean = x.detach().mean(dim=0).to(self.w_avg.dtype)
+                self.w_avg.copy_(mean + self.w_avg_beta * (self.w_avg - mean))
+        x = x[:, None, :].repeat(1, self.num_ws, 1)
+        if truncation_psi != 1.0:
+            if self.w_avg is None:
+                raise ValueError("truncation_psi != 1 needs a tracked w_avg "
+                                 "(a mapping network with w_avg_beta)")
+            w_avg = self.w_avg.to(x.dtype)
+            trunc = w_avg + truncation_psi * (x - w_avg)
+            if truncation_cutoff is None:
+                x = trunc
+            else:
+                x = torch.cat([trunc[:, :truncation_cutoff],
+                               x[:, truncation_cutoff:]], dim=1)
+        return x
 
 
 class SynthesisLayer(nn.Module):
@@ -118,7 +147,9 @@ class SynthesisLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, w: torch.Tensor,
                 noise_mode: str = "random",
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``noise`` (N, 1, res, res) replaces the random draw."""
         if noise_mode not in _NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {_NOISE_MODES}")
         styles = self.affine(w)
@@ -128,12 +159,14 @@ class SynthesisLayer(nn.Module):
             x = smooth_upsample(x)
         ns = self.noise_strength.to(x.dtype)
         if noise_mode == "random":
-            if generator is None:
-                raise ValueError("noise_mode='random' needs a torch.Generator")
-            noise = torch.randn((x.shape[0], 1, self.resolution,
-                                 self.resolution), generator=generator,
-                                device=x.device, dtype=x.dtype)
-            x = x + noise * ns
+            if noise is None:
+                if generator is None:
+                    raise ValueError("noise_mode='random' needs a "
+                                     "torch.Generator or given noise")
+                noise = torch.randn((x.shape[0], 1, self.resolution,
+                                     self.resolution), generator=generator,
+                                    device=x.device, dtype=x.dtype)
+            x = x + noise.to(x.dtype) * ns
         elif noise_mode == "const":
             x = x + self.noise_const.to(x.dtype) * ns
         return bias_act(x, self.bias, act="lrelu", clamp=256.0)
@@ -180,9 +213,13 @@ class SynthesisPrologue(nn.Module):
     def init_weights_(self, generator: torch.Generator):
         normal_(self.const, generator)
 
-    def forward(self, ws, noise_mode="random", generator=None):
-        x = self.const.to(ws.dtype)[None].expand(ws.shape[0], -1, -1, -1)
-        x = self.conv1(x, ws[:, 0], noise_mode, generator)
+    def forward(self, ws, noise_mode="random", generator=None, noises=None):
+        # a copy, not a view of the parameter: a view made under no_grad
+        # has requires_grad and no grad_fn, which FlopCounterMode's module
+        # tracker refuses
+        x = self.const.to(ws.dtype)[None].repeat(ws.shape[0], 1, 1, 1)
+        x = self.conv1(x, ws[:, 0], noise_mode, generator,
+                       None if noises is None else noises[0])
         return x, self.torgb(x, ws[:, 1])
 
 
@@ -199,9 +236,11 @@ class SynthesisBlock(nn.Module):
                                     resolution)
         self.torgb = ToRGBLayer(out_channels, img_channels, w_dim)
 
-    def forward(self, x, img, ws, noise_mode="random", generator=None):
-        x = self.conv0(x, ws[:, 0], noise_mode, generator)
-        x = self.conv1(x, ws[:, 1], noise_mode, generator)
+    def forward(self, x, img, ws, noise_mode="random", generator=None,
+                noises=None):
+        n0, n1 = (None, None) if noises is None else noises
+        x = self.conv0(x, ws[:, 0], noise_mode, generator, n0)
+        x = self.conv1(x, ws[:, 1], noise_mode, generator, n1)
         y = self.torgb(x, ws[:, 2])
         return x, smooth_upsample(img) + y
 
@@ -226,11 +265,26 @@ class SynthesisNetwork(nn.Module):
             SynthesisBlock(chans[r // 2], chans[r], w_dim, r, img_channels)
             for r in res[1:])
 
-    def forward(self, ws, noise_mode="random", generator=None):
-        x, img = self.first_block(ws[:, 0:2], noise_mode, generator)
+    def noise_shapes(self, batch: int):
+        """The (N, 1, res, res) shape of each layer's noise, forward order."""
+        res = [self.first_block.conv1.resolution]
+        for block in self.blocks:
+            res += [block.conv0.resolution, block.conv1.resolution]
+        return [(batch, 1, r, r) for r in res]
+
+    def forward(self, ws, noise_mode="random", generator=None, noises=None):
+        """``noises``: one tensor per layer as ``noise_shapes`` lists them,
+        in place of the random draws."""
+        if noises is not None and len(noises) != 1 + 2 * len(self.blocks):
+            raise ValueError(f"{len(noises)} noises for "
+                             f"{1 + 2 * len(self.blocks)} layers")
+        x, img = self.first_block(ws[:, 0:2], noise_mode, generator,
+                                  None if noises is None else noises[:1])
         for n, block in enumerate(self.blocks):
             x, img = block(x, img, ws[:, 2 * n + 1: 2 * n + 4], noise_mode,
-                           generator)
+                           generator,
+                           None if noises is None
+                           else noises[1 + 2 * n: 3 + 2 * n])
         return img
 
 
@@ -250,9 +304,14 @@ class Generator(nn.Module):
 
     def forward(self, z: torch.Tensor, noise_mode: str = "random",
                 input_is_latent: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        ws = z if input_is_latent else self.mapping(z)
-        return self.synthesis(ws, noise_mode, generator)
+                generator: Optional[torch.Generator] = None,
+                truncation_psi: float = 1.0,
+                truncation_cutoff: Optional[int] = None,
+                skip_w_avg_update: bool = False,
+                noises=None) -> torch.Tensor:
+        ws = z if input_is_latent else self.mapping(
+            z, truncation_psi, truncation_cutoff, skip_w_avg_update)
+        return self.synthesis(ws, noise_mode, generator, noises)
 
     @torch.no_grad()
     def mean_latent(self, n_latent: int, generator: torch.Generator,
@@ -265,7 +324,7 @@ class Generator(nn.Module):
         while done < n_latent:
             b = min(batch, n_latent - done)
             z = torch.randn((b, self.z_dim), generator=generator, device=dev)
-            s = self.mapping(z)[:, 0].float().sum(dim=0)
+            s = self.mapping(z, skip_w_avg_update=True)[:, 0].float().sum(0)
             total = s if total is None else total + s
             done += b
         return (total / n_latent)[None].repeat(self.num_ws, 1)

@@ -18,6 +18,9 @@ constant in x, so that gives the second derivative (stage 1's R1 penalty
 differentiates through B1 twice). The bias gradient ``db = sum(dx)`` is
 taken in PyTorch, as the JAX package sums outside its kernel, and only
 when the bias requires a gradient.
+
+``fused_leaky_relu`` (the rosinality discriminator's activation) and
+``clamp_gain`` are this op with other arguments: no separate path.
 """
 
 from __future__ import annotations
@@ -246,6 +249,24 @@ def bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
     if bias is None:
         bias = torch.zeros(x.shape[1], device=x.device)
     return _BiasAct.apply(x, bias, act, gain, clamp)
+
+
+def fused_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                     negative_slope: float = 0.2,
+                     scale: float = _SQRT2) -> torch.Tensor:
+    """``(x + b >= 0 ? x + b : slope (x + b)) * scale``, bias over dim 1 of
+    an (N, C, ...) or (N, C) input: ``bias_act(act="lrelu", gain=scale /
+    sqrt(2), clamp=None)``, so kernels B1 and B1b serve it on the card.
+    Only the slope 0.2 of B1's lrelu is taken."""
+    if negative_slope != _ACTS["lrelu"][0]:
+        raise ValueError(f"fused_leaky_relu: slope {negative_slope}, the "
+                         f"kernel's lrelu has 0.2")
+    return bias_act(x, bias, act="lrelu", gain=scale / _SQRT2)
+
+
+def clamp_gain(x: torch.Tensor, gain: float, clamp: float) -> torch.Tensor:
+    """``clip(x * gain, -clamp, clamp)``."""
+    return torch.clamp(x * gain, -clamp, clamp)
 
 
 bias_act.launches = 0

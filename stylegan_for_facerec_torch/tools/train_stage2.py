@@ -7,8 +7,10 @@
 
 The flags of the JAX package's ``tools/train_stage2.py`` plus ``--device``
 (the GPU unless ``--device cpu``; raises when no GPU is found).
-``--stylegan_weights`` is a torch StyleGAN2-ADA checkpoint whose ``G.*``
-keys load straight into the generator; ``--lpips_weights`` a
+``--stylegan_weights`` is a stage-1 run directory of
+``tools/train_stage1.py``, whose newest checkpoint's ``g_ema`` loads into
+the generator (the stage-1 -> stage-2 handoff), or a torch StyleGAN2-ADA
+checkpoint whose ``G.*`` keys load; ``--lpips_weights`` a
 ``torch.save``d ``LPIPS`` state_dict. With ``lpips_lambda > 0`` and no
 LPIPS weights the run is refused unless ``--allow_random_lpips``.
 Checkpoints go to ``exp_dir/step_*.pt`` (model, ``latent_avg``,
@@ -41,7 +43,8 @@ def _parse(argv):
     ap.add_argument("--l2_lambda", type=float, default=1.0)
     ap.add_argument("--w_norm_lambda", type=float, default=0.0)
     ap.add_argument("--stylegan_weights", default=None,
-                    help="torch StyleGAN2-ADA checkpoint (G.* keys)")
+                    help="stage-1 run directory (its g_ema), or a torch "
+                    "StyleGAN2-ADA checkpoint (G.* keys)")
     ap.add_argument("--lpips_weights", default=None,
                     help="torch.save'd LPIPS state_dict (net.*, lin.*)")
     ap.add_argument("--save_interval", type=int, default=1000)
@@ -76,7 +79,7 @@ def main(argv=None):
     from ..losses.perceptual import LPIPS
     from ..nn.initializers import init_weights
     from ..train.stage2 import Stage2Coach, Stage2Config
-    from ..utils.checkpoint import CheckpointManager
+    from ..utils.checkpoint import CheckpointManager, load_generator_handoff
     from ..utils.device import resolve_device
     from ..utils.preempt import install_preemption_handler
 
@@ -129,13 +132,10 @@ def main(argv=None):
         avg_image = torch.from_numpy(np.load(avg_path))
     else:
         if args.stylegan_weights:
-            ckpt = torch.load(args.stylegan_weights, map_location="cpu",
-                              weights_only=True)
-            sd = ckpt.get("state_dict", ckpt)
-            coach.model.decoder.load_state_dict(
-                {k[2:]: v for k, v in sd.items() if k.startswith("G.")},
-                strict=True)
-            print(f"[init] generator weights from {args.stylegan_weights}")
+            source = load_generator_handoff(args.stylegan_weights,
+                                            coach.model.decoder)
+            print(f"[init] loaded generator weights ({source}) from "
+                  f"{args.stylegan_weights}")
         coach.estimate_latent_avg(torch.Generator(device).manual_seed(1))
         avg_image = coach.make_avg_image().cpu()
         np.save(avg_path, avg_image.numpy())

@@ -1,6 +1,7 @@
 from .optim import Ranger, Stage3Schedule
+from .stage1 import Stage1Trainer
 from .stage2 import Stage2Coach, Stage2Config
 from .stage3 import Stage3Config, Stage3Trainer
 
-__all__ = ["Ranger", "Stage2Coach", "Stage2Config", "Stage3Config",
-           "Stage3Schedule", "Stage3Trainer"]
+__all__ = ["Ranger", "Stage1Trainer", "Stage2Coach", "Stage2Config",
+           "Stage3Config", "Stage3Schedule", "Stage3Trainer"]

@@ -9,6 +9,13 @@
     (``backbone`` state_dict with its ``avg_image`` buffer, ``head``,
     ``optimizer``, ``opt_count``, ``avg_image``) and the epoch in its
     metadata.
+    A stage-1 file holds ``Stage1Trainer.state_dict()``: ``g``, ``d``,
+    ``g_ema`` (each a state_dict with its buffers: ``w_avg``,
+    ``noise_const``), ``opt_g``, ``opt_d``, ``ada_p``, ``rt_accum``,
+    ``rt_count``, ``pl_mean`` and ``step``.
+  * ``load_generator_handoff``: the stage-1 -> stage-2 handoff, a stage-1
+    run directory's ``g_ema`` (or a torch ADA checkpoint's ``G.*`` keys)
+    into the pSp decoder.
   * ``load_stage2_encoder``: the stage-2 -> stage-3 handoff, a stage-2
     ``PSp`` state_dict's ``encoder.input_layer`` and ``encoder.body`` into
     a ``PSpFaceRec``; ``load_backbone``: a stage-3 file's backbone.
@@ -48,6 +55,39 @@ def load_checkpoint(path: str, model: PSp) -> Optional[torch.Tensor]:
     with torch.no_grad():
         model.latent_avg.copy_(ckpt["latent_avg"])
     return ckpt.get("avg_image")
+
+
+def load_generator_handoff(path: str, decoder: nn.Module) -> str:
+    """Load the stage-2 CLI's ``--stylegan_weights`` into ``decoder`` (a
+    ``models.stylegan2_ada.Generator``) strictly, and name the source:
+    a directory is a stage-1 run (``tools/train_stage1.py``), whose newest
+    checkpoint's ``g_ema`` loads, buffers (``w_avg``, ``noise_const``)
+    included; a file is a torch StyleGAN2-ADA checkpoint whose ``G.*`` keys
+    load. A directory without a checkpoint or a ``g_ema`` entry, or a
+    ``g_ema`` of another layout (image size, z/w width, mapping depth),
+    raises ``SystemExit``."""
+    if os.path.isdir(path):
+        latest = CheckpointManager(path).latest()
+        if latest is None:
+            raise SystemExit(f"{path}: no step_*.pt checkpoint; expected a "
+                             f"tools/train_stage1.py run directory")
+        ckpt = torch.load(latest, map_location="cpu", weights_only=True)
+        if "g_ema" not in ckpt:
+            raise SystemExit(f"{latest} has no 'g_ema' entry; expected a "
+                             f"tools/train_stage1.py run directory")
+        try:
+            decoder.load_state_dict(ckpt["g_ema"], strict=True)
+        except RuntimeError as e:
+            raise SystemExit(
+                f"{latest}: the stage-1 g_ema does not match this decoder "
+                f"(another image size, z/w width or mapping depth?): "
+                f"{str(e)[:300]}") from e
+        return "stage-1 run dir"
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt)
+    decoder.load_state_dict({k[2:]: v for k, v in sd.items()
+                             if k.startswith("G.")}, strict=True)
+    return "torch ADA checkpoint"
 
 
 def load_stage2_encoder(backbone: PSpFaceRec,

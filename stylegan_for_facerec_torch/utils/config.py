@@ -1,6 +1,8 @@
-"""Stage-3 configuration, as ``stylegan_for_facerec_tpu/utils/config.py``'s
-``Stage3Options``: loaded from JSON or YAML (``load_config``) or converted
-from a reference python config's ``configurations`` dict
+"""Stage-1 and stage-3 configurations, as
+``stylegan_for_facerec_tpu/utils/config.py``'s ``Stage1Config`` and
+``Stage3Options``: loaded from JSON or YAML (``load_config``, e.g.
+``configs/stage1_stylegan2_ada.json``), and stage 3's converted from a
+reference python config's ``configurations`` dict
 (``from_reference_stage3``).
 """
 
@@ -9,6 +11,34 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Dict, Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass
+class Stage1Config:
+    """StyleGAN2-ADA GAN pretraining (``configs/stage1_stylegan2_ada.json``),
+    plus the port's ``compute_dtype``: "float32", or "bfloat16" for bf16
+    compute with float32 parameters and optimizer state."""
+
+    image_size: int = 128
+    z_dim: int = 512
+    w_dim: int = 512
+    num_mapping_layers: int = 8
+    batch_size: int = 8
+    lr_g: float = 0.002
+    lr_d: float = 0.00235
+    lambda_gp: float = 4.0          # R1 gamma
+    lambda_plp: float = 2.0         # path-length penalty weight
+    lazy_gradient_penalty_interval: int = 16
+    lazy_path_penalty_after: int = 0
+    lazy_path_penalty_interval: int = 4
+    ada_start_p: float = 0.0
+    ada_target: float = 0.6
+    ada_interval: int = 4
+    ada_fixed: bool = False
+    ema_beta: float = 0.999
+    num_epochs: int = 500
+    batches_per_epoch: int = 4000
+    compute_dtype: str = "float32"
 
 
 @dataclasses.dataclass

@@ -5,7 +5,8 @@ entry in the JAX trees (nested dicts of arrays keyed like the module names;
 a child such as ``styles.3`` or ``blocks.0`` is one key there). The layout
 rules are those of the reference torch export:
 
-  * ``nn.Conv2d`` and the synthesis/torgb conv weights: HWIO -> OIHW;
+  * ``nn.Conv2d``, ``EqualConv2d`` and the synthesis/torgb conv weights:
+    HWIO -> OIHW;
     this covers ``losses.perceptual.LPIPS`` too: its trunk convolutions
     (``net.0``, ``net.3``, ...) and its ``lin.{i}`` weights, (1, 1, C, 1)
     -> (1, C, 1, 1);
@@ -14,17 +15,21 @@ rules are those of the reference torch export:
     input axis is also permuted from the JAX package's (H, W, C) order to
     (C, H, W);
   * ``FullyConnectedLayer`` / ``EqualLinear``: (out, in) kept;
+  * a discriminator ``ConvLayer``'s activation bias (``FusedLeakyReLU``)
+    at its child ``1`` or, after a blur, ``2``;
   * ``SynthesisPrologue.const``: HWC -> CHW;
   * BatchNorm2d and BatchNorm1d ``mean``/``var`` state ->
     ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``);
-  * ``noise_const`` and the mapping network's ``w_avg`` from state;
+  * ``noise_const`` and the mapping network's ``w_avg`` (when it tracks
+    one) from state;
   * ``PSpFaceRec.avg_image``: state (H, W, 3) -> buffer (3, H, W);
   * the margin heads of ``models.heads``: their parameters and buffers
     under the JAX names, unchanged (a class weight stays (C, D)).
 
 A stage-3 backbone thus loads whole (``PSpFaceRec``, ``Backbone``), and
 ``load_stage3_from_jax`` fills a ``Stage3Trainer`` from the JAX trainer's
-trees. ``PSp.latent_avg`` is out of band: not in the state_dict, set by
+trees; ``load_stage1_from_jax`` fills a ``Stage1Trainer`` from the JAX
+stage-1 train state. ``PSp.latent_avg`` is out of band: not in the state_dict, set by
 ``load_from_jax``.
 """
 
@@ -38,7 +43,7 @@ from torch import nn
 
 from ..models import heads
 from ..models.psp import PSp, PSpFaceRec
-from ..models.stylegan2 import EqualLinear
+from ..models.stylegan2 import EqualConv2d, EqualLinear, FusedLeakyReLU
 from ..nn.layers import Flatten
 from ..models.stylegan2_ada import (FullyConnectedLayer, MappingNetwork,
                                     SynthesisLayer, SynthesisPrologue,
@@ -121,6 +126,13 @@ def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping,
         if mod.bias is not None:
             out["bias"] = p["bias"]
         return out
+    if isinstance(mod, EqualConv2d):
+        out = {"weight": _oihw(p["weight"])}
+        if mod.bias is not None:
+            out["bias"] = p["bias"]
+        return out
+    if isinstance(mod, FusedLeakyReLU):
+        return {"bias": p["bias"]}
     if isinstance(mod, SynthesisLayer):
         return {"weight": _oihw(p["weight"]), "bias": p["bias"],
                 "noise_strength": p["noise_strength"],
@@ -129,7 +141,7 @@ def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping,
         return {"weight": _oihw(p["weight"]), "bias": p["bias"]}
     if isinstance(mod, SynthesisPrologue):
         return {"const": np.transpose(np.asarray(p["const"]), (2, 0, 1))}
-    if isinstance(mod, MappingNetwork):
+    if isinstance(mod, MappingNetwork) and mod.w_avg is not None:
         return {"w_avg": s["w_avg"]}
     return {}
 
@@ -176,4 +188,22 @@ def load_stage3_from_jax(trainer, params: Mapping, state: Mapping):
     with torch.no_grad():
         trainer.head_weight.copy_(torch.from_numpy(
             np.array(params["head"]["weight"], np.float32)))
+    return trainer
+
+
+def load_stage1_from_jax(trainer, jax_state: Mapping):
+    """Fill a ``train.stage1.Stage1Trainer`` from the JAX trainer's train
+    state (``Stage1Trainer.init``'s dict): G and g_ema strictly with the
+    generator state (``w_avg``, ``noise_const``), D, ``ada_p``, the r_t
+    accumulators, ``pl_mean`` and ``step``. Adam's moments are not carried
+    (a fresh JAX state has none to carry)."""
+    g_state = jax_state["g_state"]
+    load_from_jax(trainer.G, jax_state["g"], g_state)
+    load_from_jax(trainer.g_ema, jax_state["g_ema"], g_state)
+    load_from_jax(trainer.D, jax_state["d"], {})
+    for k in ("ada_p", "rt_accum", "rt_count", "pl_mean"):
+        setattr(trainer, k, torch.tensor(np.asarray(jax_state[k]),
+                                         dtype=torch.float32,
+                                         device=trainer.device))
+    trainer.step = int(np.asarray(jax_state["step"]))
     return trainer
