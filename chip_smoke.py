@@ -96,10 +96,40 @@ Phases, each fatal on failure (nonzero exit, no result line):
      iteration (device time by kernel, busy share, B1/B1b/B2/B2b totals
      and launches) and each kernel's path_ms over the common iteration's
      shapes beside the summed bound.
+ 19. stage-2 e4e training at full width: E4eCoach on E4e(256) at input 112
+     (phase 7's recipe plus the latent discriminator at lambda 0.1 with
+     R1 10 every 16 steps and pools of 50, delta regularisation 2e-4,
+     progressive stages 0, 1, 2 at steps 0, 1, 2), 3 iterations (encoder
+     step + D step, R1 at step 0) at f32 batch 8 with TF32 off: finite
+     losses, the delta loss 0 exactly at stage 0 only, the decoder and
+     w_avg unchanged bit for bit, the live encoder tensors and D moved,
+     the style heads of unreached stages kept, the BatchNorm running
+     statistics moved by each encoder step and kept bit for bit by each
+     D step, and each encoder step launching B1/B1b/B2/B2b 13/13/12/12
+     times and each D step 0;
+ 20. one first e4e encoder step (stage 1) and D step with R1 from the same
+     weights, inputs and z at batch 2 on the card and on the CPU: losses,
+     every encoder update, the BatchNorm batch statistics, every D
+     gradient and the first Adam updates of D, at phase 8's tolerances;
+ 21. encoder bootstrapping: the phase-19 E4e at the inference stage makes
+     the first inversion and a PSp(256) runs the other 4 iterations, batch
+     8 (65 B1 and 60 B2 launches); card vs CPU at batch 2 over 2
+     iterations;
+ 22. e4e iteration ms and images/s at the inference stage (encoder step +
+     D step without R1, and the D step alone, on the host's clock and in
+     device time) at bf16 batch 128 (bench.py's e4e cell) and f32 batch 32;
+     peak GiB; a profile of one bf16 batch-128 iteration (device time by
+     kernel, busy share, B1/B1b/B2/B2b totals);
+ 23. the pSp encoder family on the card: every encoder build_encoder
+     builds (GradualStyleEncoder and ResNetBackboneEncoder at 256 px, the
+     IR-SE 34/50/100 and progressive backbones at 112) and the stage-3
+     encoder's "pSp" and "both" heads, 16 styles, seeded weights and
+     BatchNorm statistics, eval mode, batch 8: the expected shapes, finite,
+     no B1/B1b/B2/B2b launch, and the CPU's codes at batch 2.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
-as nvidia-smi reports them, and the ones before that the stage-1 and
-stage-3 numbers as JSON. Exits nonzero without a GPU.
+as nvidia-smi reports them, and the ones before that the stage-1, stage-3
+and e4e numbers as JSON. Exits nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -137,13 +167,17 @@ from stylegan_for_facerec_torch.data.packed import (PackedLoader,
                                                     PackedTrainDataset,
                                                     device_prefetch,
                                                     write_packed)
-from stylegan_for_facerec_torch.eval.inference import run_on_batch
+from stylegan_for_facerec_torch.eval.inference import (encoder_bootstrap,
+                                                      run_on_batch)
 from stylegan_for_facerec_torch.eval.verification import evaluate
 from stylegan_for_facerec_torch.eval.verify_runner import (compute_embeddings,
                                                            make_embed_fn,
                                                            perform_val)
 from stylegan_for_facerec_torch.losses.perceptual import LPIPS
-from stylegan_for_facerec_torch.models.psp import PSpFaceRec, build_psp
+from stylegan_for_facerec_torch.models.e4e import PROGRESSIVE_STAGE_INFERENCE
+from stylegan_for_facerec_torch.models.psp import (BackboneEncoderDiffHead,
+                                                  PSpFaceRec, build_encoder,
+                                                  build_psp, n_styles_for)
 from stylegan_for_facerec_torch.models.stylegan2 import discriminator_channels
 from stylegan_for_facerec_torch.models.stylegan2_ada import channels_for
 from stylegan_for_facerec_torch.nn.initializers import init_weights
@@ -158,6 +192,7 @@ from stylegan_for_facerec_torch.nn.layers import Dropout
 from stylegan_for_facerec_torch.train.ada_aug import apply_ada
 from stylegan_for_facerec_torch.train.stage1 import Stage1Trainer
 from stylegan_for_facerec_torch.train.stage2 import Stage2Coach, Stage2Config
+from stylegan_for_facerec_torch.train.stage2_e4e import E4eCoach, E4eConfig
 from stylegan_for_facerec_torch.train.stage3 import (Stage3Config,
                                                      Stage3Trainer)
 from stylegan_for_facerec_torch.utils.checkpoint import load_stage2_encoder
@@ -224,6 +259,14 @@ S1_LAUNCHES = {
     ("d_step", False): (37, 26, 10, 0), ("d_step", True): (37, 52, 10, 0),
     ("g_step", False): (24, 24, 10, 10), ("g_step", True): (35, 57, 25, 25)}
 S1_CYCLE = 16                 # steps of one R1 period
+# e4e: the progressive schedule of the main path (stages 0, 1, 2 at steps
+# 0, 1, 2), the rate batches (bench.py's e4e cell: bf16 batch 128) and
+# the launches of one encoder step and of one D step
+E4E_STEPS, E4E_PROGRESSIVE = 3, (0, 1, 2)
+E4E_RATE_BATCH, E4E_F32_RATE_BATCH = 128, 32
+E4E_ENC_LAUNCHES = {"bias_act": 13, "bias_act_grad": 13,
+                    "smooth_upsample": 12, "smooth_upsample_grad": 12}
+E4E_D_LAUNCHES = dict.fromkeys(E4E_ENC_LAUNCHES, 0)
 
 
 def fail(msg: str):
@@ -782,7 +825,9 @@ def profile_breakdown(label: str, fn, top: int = 12,
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's wall time. Returns B1's and
     B2's device ms and launches in that call; ``details``, when given, is
-    filled with the device and wall ms and the top kernels."""
+    filled with the device and wall ms and the top kernels. Fails when the
+    profiler records no device time: the launch checks and the numbers
+    read from the profile would be missing."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                              # warm-up
     torch.cuda.synchronize()
@@ -801,8 +846,7 @@ def profile_breakdown(label: str, fn, top: int = 12,
     kern = [e for e in events if e not in spans]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if dev_ms <= 0:
-        log(f"{label}: the profiler recorded no device time")
-        return {}
+        fail(f"{label}: the profiler recorded no device time")
     log(f"{label}: device busy {dev_ms:.1f} ms of {wall_ms:.1f} ms wall "
         f"({dev_ms / wall_ms:.1%})")
     tops = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
@@ -840,10 +884,10 @@ def make_coach(device: str, compute_dtype: str = "float32") -> Stage2Coach:
         device), device=device, seed=0)
 
 
-def ready_coach():
-    """``make_coach`` on the card with its latent average (4096 seeded z)
-    and average image, as the training phases start."""
-    coach = make_coach("cuda")
+def ready_coach(make=make_coach):
+    """``make`` (``make_coach``) on the card with its latent average (4096
+    seeded z) and average image, as the training phases start."""
+    coach = make("cuda")
     coach.estimate_latent_avg(torch.Generator(device="cuda").manual_seed(1),
                               n_latent=4096)
     return coach, coach.make_avg_image()
@@ -929,7 +973,26 @@ def phase_train_cpu_reference(latent_avg, avg):
     lrel = abs(loss.item() - c_loss.item()) / abs(c_loss.item())
     if not lrel <= CPU_REL_TOL:
         fail(f"train loss card {loss.item()} vs CPU {c_loss.item()}")
-    params = [f"encoder.{k}" for k, _ in cpu.model.encoder.named_parameters()]
+    r = compare_encoder_step(got, want, before, cpu.model, "phase 8")
+    log(f"phase 8: first train step card vs CPU at batch "
+        f"{CPU_TRAIN_BATCH}: loss {loss.item():.6f} vs {c_loss.item():.6f} "
+        f"(rel {lrel:.2e}); worst encoder tensor {r['worst_tensor']} at "
+        f"{r['worst_ratio']:.3f} of its tolerance; all encoder updates "
+        f"together differ by {r['update_norm_rel']:.2e} in norm; BatchNorm "
+        f"batch statistics rel err {r['bn_rel_err']:.2e}; CPU step "
+        f"{dt:.1f} s")
+
+
+def compare_encoder_step(got: dict, want: dict, before: dict, cpu_model,
+                         label: str) -> dict:
+    """One encoder step on the card (state_dict ``got``, on the CPU)
+    against the CPU's (``want``) from the same ``before``: each encoder
+    tensor's update within CPU_UPDATE_TOL of the CPU's largest, plus 1e-6
+    of the largest update of any tensor and 4 f32 ulps; each BatchNorm
+    layer's batch statistics, (running - (1 - m) * before) / m with
+    momentum m = 0.1, the mean against the layer's spread and the var
+    against its largest var, within CPU_REL_TOL."""
+    params = [f"encoder.{k}" for k, _ in cpu_model.encoder.named_parameters()]
     gmax = max((want[k] - before[k]).abs().max().item() for k in params)
     floor = 1e-6 * gmax
     worst, worst_k, sq_diff, sq_u = 0.0, None, 0.0, 0.0
@@ -944,11 +1007,8 @@ def phase_train_cpu_reference(latent_avg, avg):
         sq_diff += diff.square().sum().item()
         sq_u += u_cpu.square().sum().item()
     if worst > 1.0:
-        fail(f"encoder update {worst_k} differs by {worst:.2f}x the "
+        fail(f"{label}: encoder update {worst_k} differs by {worst:.2f}x the "
              f"tolerance")
-    # the step's batch statistics, (running - (1 - m) * before) / m with
-    # BatchNorm's momentum m = 0.1: mean against the layer's spread, var
-    # against the layer's largest var
     bn_err = 0.0
     for k in want:
         if not k.endswith("running_mean"):
@@ -961,16 +1021,13 @@ def phase_train_cpu_reference(latent_avg, avg):
         err = max((m_card - m_cpu).abs().max().item() / math.sqrt(vmax),
                   (v_card - v_cpu).abs().max().item() / vmax)
         if err > CPU_REL_TOL:
-            fail(f"BatchNorm {k[:-len('.running_mean')]}: card vs CPU batch "
-                 f"statistics differ by {err:.3e} of the layer's scale")
+            fail(f"{label}: BatchNorm {k[:-len('.running_mean')]}: card vs "
+                 f"CPU batch statistics differ by {err:.3e} of the layer's "
+                 f"scale")
         bn_err = max(bn_err, err)
-    log(f"phase 8: first train step card vs CPU at batch "
-        f"{CPU_TRAIN_BATCH}: loss {loss.item():.6f} vs {c_loss.item():.6f} "
-        f"(rel {lrel:.2e}); worst encoder tensor {worst_k} at {worst:.3f} "
-        f"of its tolerance; all encoder updates together differ by "
-        f"{math.sqrt(sq_diff / sq_u):.2e} in norm; BatchNorm batch "
-        f"statistics rel err "
-        f"{bn_err:.2e}; CPU step {dt:.1f} s")
+    return {"worst_ratio": worst, "worst_tensor": worst_k,
+            "update_norm_rel": math.sqrt(sq_diff / sq_u),
+            "bn_rel_err": bn_err}
 
 
 def train_rate(coach, avg, batch: int, compute_dtype: str) -> dict:
@@ -1223,7 +1280,7 @@ def phase_stage3_rates(trainer) -> dict:
         lambda: trainer.train_step(x, y, 0), details=details)
     if any(n for _, n in totals.values()):
         fail(f"the stage-3 train step launched B kernels: {totals}")
-    if details and not any("bf16" in k or "bfloat16" in k
+    if not any("bf16" in k or "bfloat16" in k
                            for k, _, _ in details["top"]):
         fail("no bf16 kernel among the top kernels of the bf16 profile")
     return {"train": rates, "step_flops": flops, "stage3_train_mfu": mfu,
@@ -1508,6 +1565,14 @@ def compare_adam(card_mod, cpu_mod, card_opt, cpu_opt, lr, label) -> int:
                    for p in card_mod.parameters()]
     card_opt.step()
     cpu_opt.step()
+    return compare_adam_updates(card_mod, cpu_mod, card_before, before, lr,
+                                label)
+
+
+def compare_adam_updates(card_mod, cpu_mod, card_before, before, lr,
+                         label) -> int:
+    """``compare_adam``'s check of first Adam updates already taken from
+    the parameters ``card_before`` (card) and ``before`` (CPU)."""
     n = 0
     for (k, pc), pu, b, cb in zip(card_mod.named_parameters(),
                                   cpu_mod.parameters(), before, card_before):
@@ -1704,7 +1769,7 @@ def phase_stage1_rates(tr, gen) -> dict:
     want = {k: S1_LAUNCHES[("d_step", False)][i]
             + S1_LAUNCHES[("g_step", False)][i]
             for i, k in enumerate(KERNELS)}
-    if totals and any(totals[k][1] != want[k] for k in KERNELS):
+    if any(totals[k][1] != want[k] for k in KERNELS):
         fail(f"phase 18: profiled launches {totals}, expected {want}")
     reg_details = {}
     reg_totals = profile_breakdown(
@@ -1714,7 +1779,7 @@ def phase_stage1_rates(tr, gen) -> dict:
     want = {k: S1_LAUNCHES[("d_step", True)][i]
             + S1_LAUNCHES[("g_step", True)][i]
             for i, k in enumerate(KERNELS)}
-    if reg_totals and any(reg_totals[k][1] != want[k] for k in KERNELS):
+    if any(reg_totals[k][1] != want[k] for k in KERNELS):
         fail(f"phase 18: profiled R1 + path-length launches {reg_totals}, "
              f"expected {want}")
     path = stage1_path_times(gen, b, torch.bfloat16)
@@ -1729,6 +1794,378 @@ def phase_stage1_rates(tr, gen) -> dict:
             "kernel_totals": totals, "kernel_totals_r1_plp": reg_totals,
             "path": {k: {"path_ms": v[0], "path_bound_ms": v[1]}
                      for k, v in sums.items()}}
+
+
+# -- stage 2, e4e -------------------------------------------------------------
+
+def make_e4e_coach(device: str, compute_dtype: str = "float32") -> E4eCoach:
+    """``make_coach``'s recipe on ``E4e``, with bench.py's e4e knobs: the
+    latent discriminator at lambda 0.1 (Adam 2e-5, R1 10 every 16 steps,
+    pools of 50), delta regularisation 2e-4 and progressive stages at
+    steps E4E_PROGRESSIVE. Weights from seed 0 (D from seed 1), on the
+    CPU first, so every device gets the same."""
+    lpips = LPIPS("alex")
+    init_weights(lpips, torch.Generator().manual_seed(99))
+    cfg = E4eConfig(output_size=OUTPUT_SIZE, n_iters_per_batch=1,
+                    l2_lambda=1.0, lpips_lambda=0.8, learning_rate=1e-4,
+                    compute_dtype=compute_dtype, w_discriminator_lambda=0.1,
+                    delta_norm_lambda=2e-4,
+                    progressive_steps=E4E_PROGRESSIVE, d_reg_every=16)
+    return E4eCoach(cfg, lpips_fn=lpips.requires_grad_(False).eval().to(
+        device), device=device, seed=0)
+
+
+def e4e_iteration(coach, x, y, avg, noise, zgen, step: int):
+    """One e4e iteration of the CLI: the encoder step, then the D step.
+    Returns both losses."""
+    loss, _, _ = coach.train_step(x, y, avg, noise)
+    return loss, coach.train_discriminator(x, avg, step, zgen)
+
+
+def phase_e4e_train(coach, avg):
+    """Phase 19: E4E_STEPS iterations of the main path at batch BATCH,
+    f32, the stage switching at each step."""
+    x, y = (t.cuda() for t in train_inputs(BATCH, seed=40))
+    noise = torch.Generator(device="cuda").manual_seed(41)
+    zgen = torch.Generator(device="cuda").manual_seed(42)
+    before = {k: v.clone() for k, v in coach.model.state_dict().items()}
+    d_before = {k: v.clone() for k, v in
+                coach.discriminator.state_dict().items()}
+    t0 = time.perf_counter()
+    rows, totals = [], dict.fromkeys(KERNELS, 0)
+    for step in range(E4E_STEPS):
+        coach.set_stage(coach.stage_for_step(step))
+        bn = {k: v.clone() for k, v in coach.model.encoder.named_buffers()}
+        w_avg = coach.model.decoder.mapping.w_avg.clone()
+        reset_launches()
+        loss, logs, _ = coach.train_step(x, y, avg, noise)
+        enc = read_launches()
+        kept = [k for k, v in coach.model.encoder.named_buffers()
+                if k.endswith(("running_mean", "running_var"))
+                and torch.equal(v, bn[k])]
+        if kept:
+            fail(f"phase 19: step {step}: the encoder step left BatchNorm "
+                 f"statistics unmoved: {kept[:3]}")
+        bn = {k: v.clone() for k, v in coach.model.encoder.named_buffers()}
+        reset_launches()
+        d_loss = coach.train_discriminator(x, avg, step, zgen)
+        dl = read_launches()
+        # the D step's encoder pass and real w's move no statistic
+        for k, v in coach.model.encoder.named_buffers():
+            if not torch.equal(v, bn[k]):
+                fail(f"phase 19: step {step}: the D step moved {k}")
+        if not torch.equal(coach.model.decoder.mapping.w_avg, w_avg):
+            fail(f"phase 19: step {step}: w_avg moved")
+        if enc != E4E_ENC_LAUNCHES or dl != E4E_D_LAUNCHES:
+            fail(f"phase 19: step {step}: launches encoder {enc}, D {dl}; "
+                 f"expected {E4E_ENC_LAUNCHES} and {E4E_D_LAUNCHES}")
+        for k in KERNELS:
+            totals[k] += enc[k] + dl[k]
+        row = {k: v.item() for k, v in logs.items()}
+        row.update(stage=coach.model.stage, d_loss=d_loss.item(),
+                   r1=step % coach.cfg.d_reg_every == 0)
+        rows.append(row)
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"phase 19: step {step}: non-finite losses {row}")
+        if (row["total_delta_loss"] == 0.0) != (row["stage"] == 0):
+            fail(f"phase 19: step {step}: delta loss "
+                 f"{row['total_delta_loss']} at stage {row['stage']}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = coach.model.state_dict()
+    changed = [k for k in before if k.startswith("decoder.")
+               and not torch.equal(before[k], after[k])]
+    if changed:
+        fail(f"phase 19: the frozen decoder changed: {changed[:5]}")
+    # the heads of the stages reached train; the others take no gradient
+    last = coach.model.stage
+    enc = {f"encoder.{k}": k for k, _ in
+           coach.model.encoder.named_parameters()}
+    idle = [k for k, n in enc.items() if n.startswith("styles.")
+            and int(n.split(".")[1]) > last]
+    live = [k for k in enc if k not in idle]
+    moved = [k for k in live if not torch.equal(before[k], after[k])]
+    if len(moved) < 0.9 * len(live):
+        fail(f"phase 19: only {len(moved)} of {len(live)} encoder tensors "
+             f"moved")
+    if any(not torch.equal(before[k], after[k]) for k in idle):
+        fail("phase 19: a style head of an unreached stage moved")
+    d_moved = [k for k, v in coach.discriminator.state_dict().items()
+               if not torch.equal(v, d_before[k])]
+    if len(d_moved) != len(d_before):
+        fail(f"phase 19: D moved in {len(d_moved)} of {len(d_before)} "
+             f"tensors")
+    log(f"phase 19: E4eCoach E4e({OUTPUT_SIZE}) f32, batch {BATCH}, "
+        f"{E4E_STEPS} iterations in {dt:.2f} s (first calls): "
+        + "; ".join(f"stage {r['stage']} loss {r['loss']:.5f} adv "
+                    f"{r['encoder_discriminator_loss']:.5f} delta "
+                    f"{r['total_delta_loss']:.5f} D {r['d_loss']:.5f}"
+                    + (" (R1)" if r["r1"] else "") for r in rows)
+        + f"; decoder and w_avg unchanged, {len(moved)} of {len(live)} "
+        f"live encoder tensors moved, {len(idle)} idle head tensors kept, D "
+        f"moved; BatchNorm statistics kept by the D steps; launches per "
+        f"encoder step {E4E_ENC_LAUNCHES}, per D step 0")
+    return totals, rows
+
+
+def phase_e4e_cpu_reference(latent_avg, avg):
+    """Phase 20: a first encoder step (stage 1) and a first D step with R1
+    of fresh e4e coaches (seed 0) on the card and on the CPU, same inputs
+    and z; noise_strength is 0 at init. Phase 8's tolerances."""
+    card, cpu = make_e4e_coach("cuda"), make_e4e_coach("cpu")
+    for c, la in ((card, latent_avg), (cpu, latent_avg.cpu())):
+        with torch.no_grad():
+            c.model.latent_avg.copy_(la)
+        c.set_stage(1)
+    x, y = train_inputs(CPU_TRAIN_BATCH, seed=43)
+    before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    loss, logs, _ = card.train_step(x.cuda(), y.cuda(), avg,
+                                    torch.Generator(device="cuda"))
+    t0 = time.perf_counter()
+    c_loss, c_logs, _ = cpu.train_step(x, y, avg.cpu(), torch.Generator())
+    dt = time.perf_counter() - t0
+    for k, v in c_logs.items():
+        err = abs(logs[k].item() - v.item())
+        if not err <= CPU_REL_TOL * abs(v.item()):
+            fail(f"phase 20: {k} card {logs[k].item()} vs CPU {v.item()}")
+    got = {k: v.detach().cpu() for k, v in card.model.state_dict().items()}
+    r = compare_encoder_step(got, cpu.model.state_dict(), before, cpu.model,
+                             "phase 20")
+    z = torch.randn((CPU_TRAIN_BATCH, 512),
+                    generator=torch.Generator().manual_seed(44))
+    bufs = [{k: v.clone() for k, v in c.model.encoder.named_buffers()}
+            for c in (card, cpu)]
+    d_before = [[p.detach().to("cpu", copy=True)
+                 for p in c.discriminator.parameters()] for c in (card, cpu)]
+    d_loss = card.train_discriminator(x.cuda(), avg, 0, z=z.cuda())
+    c_d_loss = cpu.train_discriminator(x, avg.cpu(), 0, z=z)
+    drel = abs(d_loss.item() - c_d_loss.item()) / abs(c_d_loss.item())
+    if not drel <= CPU_REL_TOL:
+        fail(f"phase 20: D loss card {d_loss.item()} vs CPU "
+             f"{c_d_loss.item()}")
+    for c, b in zip((card, cpu), bufs):
+        for k, v in c.model.encoder.named_buffers():
+            if not torch.equal(v, b[k]):
+                fail(f"phase 20: the D step moved {k} on {v.device}")
+    gr = compare_params(card.discriminator, cpu.discriminator, "phase 20: D")
+    n = compare_adam_updates(card.discriminator, cpu.discriminator,
+                             d_before[0], d_before[1],
+                             cpu.cfg.w_discriminator_lr, "phase 20: D")
+    log(f"phase 20: first e4e step card vs CPU at batch {CPU_TRAIN_BATCH}, "
+        f"stage 1: loss {loss.item():.6f} vs {c_loss.item():.6f}, adv "
+        f"{logs['encoder_discriminator_loss'].item():.6f} vs "
+        f"{c_logs['encoder_discriminator_loss'].item():.6f}, delta "
+        f"{logs['total_delta_loss'].item():.6f} vs "
+        f"{c_logs['total_delta_loss'].item():.6f}; worst encoder tensor "
+        f"{r['worst_tensor']} at {r['worst_ratio']:.3f} of its tolerance, "
+        f"updates {r['update_norm_rel']:.2e} apart in norm, BatchNorm batch "
+        f"statistics rel err {r['bn_rel_err']:.2e}; D step with R1: loss "
+        f"{d_loss.item():.6f} vs {c_d_loss.item():.6f} (rel {drel:.2e}), "
+        f"worst D gradient {gr['worst_grad_tensor']} at "
+        f"{gr['worst_grad_ratio']:.3f} of its tolerance "
+        f"({gr['grad_norm_rel']:.2e} in norm), first Adam updates agree on "
+        f"{n} elements, BatchNorm statistics kept on both; CPU encoder step "
+        f"{dt:.1f} s")
+    return {"loss": [loss.item(), c_loss.item()],
+            "d_loss": [d_loss.item(), c_d_loss.item()], **r, **gr,
+            "adam_elements": n}
+
+
+def phase_e4e_bootstrap(model):
+    """Phase 21: encoder bootstrapping at full width: the phase-19 e4e
+    model (inference stage) makes the first inversion, a PSp(256) of seed
+    0 the other ITERS - 1, at batch BATCH; then both on the CPU at batch
+    CPU_BATCH over CPU_ITERS iterations."""
+    m1 = copy.deepcopy(model).eval().set_stage(PROGRESSIVE_STAGE_INFERENCE)
+    m2 = build_psp(OUTPUT_SIZE, INPUT_SIZE, seed=0, device="cuda")
+    x, avg = make_inputs(BATCH, seed=45)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs, lats = encoder_bootstrap(m1, m2, x.cuda(), avg.cuda(), ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    # a synthesis forward launches B1 and B2 as often as an encoder step
+    want = {"bias_act": E4E_ENC_LAUNCHES["bias_act"] * ITERS,
+            "bias_act_grad": 0,
+            "smooth_upsample": E4E_ENC_LAUNCHES["smooth_upsample"] * ITERS,
+            "smooth_upsample_grad": 0}
+    if launches != want:
+        fail(f"phase 21: launches {launches}, expected {want}")
+    finite = torch.isfinite(outs).all() and torch.isfinite(lats).all()
+    if (tuple(outs.shape) != (ITERS, BATCH, 256, 256, 3)
+            or tuple(lats.shape) != (ITERS, BATCH, m1.n_styles, 512)
+            or not finite):
+        fail(f"phase 21: outputs {tuple(outs.shape)}, latents "
+             f"{tuple(lats.shape)} or not finite")
+    c1, c2 = copy.deepcopy(m1).cpu(), copy.deepcopy(m2).cpu()
+    c_outs, c_lats = encoder_bootstrap(c1, c2, x[:CPU_BATCH], avg, CPU_ITERS)
+    errs = {}
+    for name, got, ref in (("images", outs, c_outs), ("latents", lats,
+                                                      c_lats)):
+        got = got[:CPU_ITERS, :CPU_BATCH].float().cpu()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= CPU_REL_TOL * scale:
+            fail(f"phase 21: card and CPU {name} differ by {err:.3e} "
+                 f"(scale {scale:.3e})")
+        errs[name] = err / scale
+    log(f"phase 21: encoder bootstrapping E4e -> PSp({OUTPUT_SIZE}), batch "
+        f"{BATCH}, {ITERS} iterations in {dt:.2f} s (first call); launches "
+        f"{launches}; card vs CPU at batch {CPU_BATCH}, {CPU_ITERS} "
+        f"iterations: images rel {errs['images']:.2e}, latents rel "
+        f"{errs['latents']:.2e} (tol {CPU_REL_TOL:g})")
+    return launches, errs
+
+
+def e4e_rate(coach, avg, batch: int, compute_dtype: str) -> dict:
+    """ms and images/s of one e4e iteration (encoder step + D step without
+    R1) and of its D step alone, at the inference stage; peak GiB."""
+    coach.cfg = dataclasses.replace(coach.cfg, compute_dtype=compute_dtype)
+    coach.set_stage(PROGRESSIVE_STAGE_INFERENCE)
+    x, y = (t.cuda() for t in train_inputs(batch, seed=46))
+    noise = torch.Generator(device="cuda").manual_seed(47)
+    zgen = torch.Generator(device="cuda").manual_seed(48)
+    e4e_iteration(coach, x, y, avg, noise, zgen, 1)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss, d_loss = e4e_iteration(coach, x, y, avg, noise, zgen, 1)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d_reps = 10
+    t0 = time.perf_counter()
+    for _ in range(d_reps):
+        coach.train_discriminator(x, avg, 1, zgen)
+    torch.cuda.synchronize()
+    d_dt = (time.perf_counter() - t0) / d_reps
+    if not (math.isfinite(loss.item()) and math.isfinite(d_loss.item())):
+        fail(f"phase 22: non-finite losses at {compute_dtype} batch {batch}")
+    # the D step's device time beside its wall time: where the device
+    # idles, the host's launches set the D step's pace
+    d_details = {}
+    totals = profile_breakdown(
+        f"phase 22: profile of a {compute_dtype} batch-{batch} D step",
+        lambda: coach.train_discriminator(x, avg, 1, zgen), top=4,
+        details=d_details)
+    if any(totals[k][1] for k in KERNELS):
+        fail(f"phase 22: the D step launched {totals}")
+    return {"images_per_s": batch / dt, "iteration_ms": dt * 1e3,
+            "d_step_ms": d_dt * 1e3,
+            "d_step_device_ms": d_details["device_ms"],
+            "peak_gib": peak}
+
+
+def phase_e4e_rates(coach, avg) -> dict:
+    """Phase 22: e4e iteration rates at bf16 batch 128 and f32 batch 32
+    (TF32 off), and a profile of one bf16 batch-128 iteration."""
+    rates = {}
+    for name, cdt, batch in (("bf16", "bfloat16", E4E_RATE_BATCH),
+                             ("f32", "float32", E4E_F32_RATE_BATCH)):
+        r = e4e_rate(coach, avg, batch, cdt)
+        rates[f"{name}_batch{batch}"] = r
+        log(f"phase 22: e4e iteration {name} batch {batch}: "
+            f"{r['iteration_ms']:.1f} ms ({r['images_per_s']:.1f} images/s), "
+            f"of which the D step {r['d_step_ms']:.1f} ms "
+            f"({r['d_step_device_ms']:.1f} ms of device time); peak "
+            f"{r['peak_gib']:.1f} GiB")
+    b = E4E_RATE_BATCH
+    coach.cfg = dataclasses.replace(coach.cfg, compute_dtype="bfloat16")
+    x, y = (t.cuda() for t in train_inputs(b, seed=49))
+    noise = torch.Generator(device="cuda").manual_seed(50)
+    zgen = torch.Generator(device="cuda").manual_seed(51)
+    details = {}
+    totals = profile_breakdown(
+        f"phase 22: profile of a bf16 batch-{b} e4e iteration",
+        lambda: e4e_iteration(coach, x, y, avg, noise, zgen, 1), top=16,
+        details=details)
+    if any(totals[k][1] != E4E_ENC_LAUNCHES[k] for k in KERNELS):
+        fail(f"phase 22: profiled launches {totals}, expected "
+             f"{E4E_ENC_LAUNCHES}")
+    return {"rates": rates, f"profile_bf16_batch{b}": details,
+            "kernel_totals": totals}
+
+
+# the pSp encoder family: each encoder build_encoder names (n_styles of
+# the 256 px generator) and the stage-3 encoder's "pSp" and "both" heads,
+# at the input size its style heads are made for
+ENCODER_INPUTS = (("GradualStyleEncoder", 256), ("BackboneEncoder", 112),
+                  ("BackboneEncoder34", 112), ("BackboneEncoder100", 112),
+                  ("ResNetBackboneEncoder", 256),
+                  ("ProgressiveBackboneEncoder", 112), ("head pSp", 112),
+                  ("head both", 112))
+
+
+def seeded_batchnorm_(model, seed: int):
+    """Every BatchNorm's weight, bias and running statistics drawn from
+    ``seed`` (the ResNet blocks' last BatchNorm weight is 0 at init, and
+    the default statistics are the identity)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                c = m.num_features
+                m.weight.copy_(0.5 + torch.rand(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return model
+
+
+def phase_encoders() -> dict:
+    """Phase 23: the pSp encoder family on the card in eval mode, each
+    built on the card from seed 0 (``build_encoder``'s default device; the
+    heads through ``BackboneEncoderDiffHead``) with seeded BatchNorm
+    statistics, at batch BATCH: finite codes of the expected shape, no
+    launch of B1/B1b/B2/B2b, and the first CPU_BATCH rows within
+    CPU_REL_TOL of the same weights on the CPU."""
+    n_styles = n_styles_for(OUTPUT_SIZE)
+    out = {}
+    for name, size in ENCODER_INPUTS:
+        if name.startswith("head "):
+            m = BackboneEncoderDiffHead(output_layer_type=name[5:],
+                                        n_styles=n_styles)
+            init_weights(m, torch.Generator().manual_seed(0))
+            m = m.cuda()
+        else:
+            m = build_encoder(name, n_styles)
+        if next(m.parameters()).device.type != "cuda":
+            fail(f"phase 23: {name} was not built on the card")
+        m = seeded_batchnorm_(m, seed=52).eval()
+        x = torch.randn(BATCH, 6, size, size,
+                        generator=torch.Generator().manual_seed(53))
+        reset_launches()
+        with torch.no_grad():
+            got = m(x.cuda())
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with torch.no_grad():
+            want = copy.deepcopy(m).cpu()(x[:CPU_BATCH])
+        if not isinstance(got, dict):
+            got, want = {"pSp": got}, {"pSp": want}
+        errs = {}
+        for k, g in got.items():
+            shape = (BATCH, 512) if k == "facerec" else (BATCH, n_styles, 512)
+            if tuple(g.shape) != shape or not torch.isfinite(g).all():
+                fail(f"phase 23: {name} {k}: {tuple(g.shape)} (expected "
+                     f"{shape}) or not finite")
+            err = (g[:CPU_BATCH].cpu() - want[k]).abs().max().item()
+            scale = want[k].abs().max().item()
+            if not err <= CPU_REL_TOL * scale:
+                fail(f"phase 23: {name} {k}: card and CPU differ by "
+                     f"{err:.3e} (scale {scale:.3e})")
+            errs[k] = err / scale
+        if any(launches.values()):
+            fail(f"phase 23: {name} launched {launches}")
+        log(f"phase 23: {name} at {size} px, batch {BATCH}: card vs CPU "
+            + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+            + f" (tol {CPU_REL_TOL:g}); no B1/B1b/B2/B2b launch")
+        out[name] = errs
+        del m
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -1824,6 +2261,17 @@ def main():
               "cpu_vs_card": phase_stage1_cpu_reference()}
     stage1.update(phase_stage1_rates(tr1, gen))
     del tr1
+
+    e4e_coach, e4e_avg = ready_coach(make_e4e_coach)
+    e4e_launches, e4e_rows = phase_e4e_train(e4e_coach, e4e_avg)
+    e4e = {"launches_steps_0_2": e4e_launches, "steps": e4e_rows,
+           "cpu_vs_card": phase_e4e_cpu_reference(
+               e4e_coach.model.latent_avg, e4e_avg)}
+    e4e["bootstrap_launches"], e4e["bootstrap_cpu_rel_err"] = \
+        phase_e4e_bootstrap(e4e_coach.model)
+    e4e.update(phase_e4e_rates(e4e_coach, e4e_avg))
+    del e4e_coach
+    e4e["encoders_cpu_rel_err"] = phase_encoders()
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -1844,6 +2292,7 @@ def main():
             "launches_stage3": s3_train_launches[name]
             + s3_verify_launches[name],
             "launches_stage1": s1_launches[name],
+            "launches_e4e": e4e_launches[name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -1855,6 +2304,7 @@ def main():
         "train": train_rates}))
     print(json.dumps({"stage3": stage3}))
     print(json.dumps({"stage1": stage1}))
+    print(json.dumps({"e4e": e4e}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

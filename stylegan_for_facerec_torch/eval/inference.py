@@ -1,5 +1,5 @@
-"""Iterative ReStyle inversion (``run_on_batch``), ``tensor2im`` and
-``face_grid``.
+"""Iterative ReStyle inversion (``run_on_batch``), encoder bootstrapping
+(``encoder_bootstrap``), ``tensor2im`` and ``face_grid``.
 
 Public layout is NHWC, as in the JAX package: images in and out are
 (B, H, W, 3) in [-1, 1]."""
@@ -15,22 +15,34 @@ from ..models.psp import PSp
 from ..ops.image import resize_bilinear
 
 
-@torch.inference_mode()
 def run_on_batch(model: PSp, inputs: torch.Tensor, avg_image: torch.Tensor,
                  n_iters: int, resize_outputs: bool = True):
     """inputs: (B, H, W, 3) on the model's device; avg_image: (H, W, 3).
     Runs ``n_iters`` refinement iterations with const noise and returns
     (outputs per iteration (iters, B, H', W', 3), latents per iteration
     (iters, B, n_styles, 512))."""
-    if model.training:
-        raise ValueError("run_on_batch needs the model in eval mode "
-                         "(BatchNorm running statistics)")
+    return encoder_bootstrap(model, model, inputs, avg_image, n_iters,
+                             resize_outputs)
+
+
+@torch.inference_mode()
+def encoder_bootstrap(model1: PSp, model2: PSp, inputs: torch.Tensor,
+                      avg_image1: torch.Tensor, n_iters: int,
+                      resize_outputs: bool = True):
+    """Encoder bootstrapping: ``model1`` makes the first inversion from its
+    average image ``avg_image1`` (its ``latent_avg`` as the start), and
+    ``model2`` runs the other ``n_iters - 1`` iterations from that output
+    and latent. Shapes as ``run_on_batch``'s; both models in eval mode."""
+    if model1.training or model2.training:
+        raise ValueError("iterative inversion needs its models in eval "
+                         "mode (BatchNorm running statistics)")
     x = inputs.permute(0, 3, 1, 2)
     h, w = x.shape[-2:]
-    cond = avg_image.permute(2, 0, 1)[None].to(x.dtype).expand_as(x)
+    cond = avg_image1.permute(2, 0, 1)[None].to(x.dtype).expand_as(x)
     latent = None
     outs, lats = [], []
-    for _ in range(n_iters):
+    for it in range(n_iters):
+        model = model1 if it == 0 else model2
         y_hat, latent = model(torch.cat([x, cond], dim=1), latent,
                               resize=resize_outputs, randomize_noise=False,
                               return_latents=True)

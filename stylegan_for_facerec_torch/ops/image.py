@@ -3,7 +3,8 @@
 ``resize_bilinear`` works on NCHW: half-pixel centres, no anti-aliasing,
 the semantics of ``F.interpolate(mode='bilinear', align_corners=False)``
 but computed with the same interpolation matrices as the JAX package, so
-that the two agree to float rounding rather than to ~1e-4. The
+that the two agree to float rounding rather than to ~1e-4;
+``resize_bilinear_align_corners`` likewise for align_corners=True. The
 verification TTA and the stage-3 augmentations take NHWC batches in
 [-1, 1]. Each random augmentation is a draw from an explicit
 ``torch.Generator`` (``draw_crop_offsets``, ``draw_flips``) and a
@@ -40,11 +41,43 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     if (h, w) == (out_h, out_w):
         return x
-    mh = torch.as_tensor(_interp_matrix(h, out_h).copy(), dtype=x.dtype,
-                         device=x.device)
-    mw = torch.as_tensor(_interp_matrix(w, out_w).copy(), dtype=x.dtype,
-                         device=x.device)
+    return _resize_with(x, _interp_matrix(h, out_h), _interp_matrix(w, out_w))
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix_align_corners(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) matrix of the align_corners=True resize:
+    src = o * (in - 1) / (out - 1)."""
+    m = np.zeros((in_size, out_size), dtype=np.float32)
+    scale = (in_size - 1) / max(out_size - 1, 1)
+    for o in range(out_size):
+        src = o * scale
+        lo = int(np.floor(src))
+        frac = src - lo
+        hi = min(lo + 1, in_size - 1)
+        m[lo, o] += 1.0 - frac
+        m[hi, o] += frac
+    m.setflags(write=False)
+    return m
+
+
+def _resize_with(x: torch.Tensor, mh: np.ndarray,
+                 mw: np.ndarray) -> torch.Tensor:
+    mh = torch.as_tensor(mh.copy(), dtype=x.dtype, device=x.device)
+    mw = torch.as_tensor(mw.copy(), dtype=x.dtype, device=x.device)
     return torch.matmul(torch.matmul(mh.t(), x), mw)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
+                                  out_w: int) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, out_h, out_w), the semantics of
+    ``nn.UpsamplingBilinear2d`` (align_corners=True), with the JAX
+    package's interpolation matrices."""
+    h, w = x.shape[-2:]
+    if (h, w) == (out_h, out_w):
+        return x
+    return _resize_with(x, _interp_matrix_align_corners(h, out_h),
+                        _interp_matrix_align_corners(w, out_w))
 
 
 def hflip(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,12 @@
 
 Saves the last iteration's reconstruction of each image under
 ``exp_dir/inference_results`` and, with ``--save_latents``, every
-iteration's latents in ``exp_dir/latents.npy``. Runs on the GPU unless
+iteration's latents in ``exp_dir/latents.npy``. With
+``--model_2_checkpoint_path`` the run is encoder bootstrapping: the first
+checkpoint's model makes the first inversion from its average image, the
+second's runs the other iterations. Both load as ``PSp``, as in the JAX
+package's CLI, so an e4e checkpoint's style heads give absolute codes
+there, not deltas on w0. Runs on the GPU unless
 ``--device cpu``; raises when no GPU is found.
 """
 
@@ -27,6 +32,9 @@ def main(argv=None):
     ap.add_argument("--n_iters_per_batch", type=int, default=5)
     ap.add_argument("--test_batch_size", type=int, default=8)
     ap.add_argument("--output_size", type=int, default=128)
+    ap.add_argument("--model_2_checkpoint_path", default=None,
+                    help="encoder bootstrapping: the first checkpoint's "
+                    "model initialises, this one iterates")
     ap.add_argument("--save_latents", action="store_true")
     ap.add_argument("--avg_image", default=None,
                     help="explicit avg-image .npy (overrides the "
@@ -36,7 +44,7 @@ def main(argv=None):
 
     from PIL import Image
     from ..data.images_dataset import InferenceDataset
-    from ..eval.inference import run_on_batch, tensor2im
+    from ..eval.inference import encoder_bootstrap, tensor2im
     from ..models.psp import PSp
     from ..utils.checkpoint import load_checkpoint
     from ..utils.device import resolve_device
@@ -60,6 +68,11 @@ def main(argv=None):
               "will degrade (pass --avg_image)")
         avg_image = torch.zeros(112, 112, 3)
     avg_image = avg_image.to(device, torch.float32)
+    model2 = model
+    if args.model_2_checkpoint_path:
+        model2 = PSp(output_size=args.output_size)
+        load_checkpoint(args.model_2_checkpoint_path, model2)
+        model2 = model2.eval().to(device)
 
     ds = InferenceDataset(args.data_path, size=112)
     out_dir = os.path.join(args.exp_dir, "inference_results")
@@ -69,8 +82,8 @@ def main(argv=None):
     for i in range(0, len(ds), bs):
         idxs = list(range(i, min(i + bs, len(ds))))
         batch = torch.from_numpy(np.stack([ds[j] for j in idxs])).to(device)
-        outs, lats = run_on_batch(model, batch, avg_image,
-                                  args.n_iters_per_batch)
+        outs, lats = encoder_bootstrap(model, model2, batch, avg_image,
+                                       args.n_iters_per_batch)
         for bi, j in enumerate(idxs):
             name = os.path.splitext(os.path.basename(ds.paths[j]))[0]
             Image.fromarray(tensor2im(outs[-1, bi])).save(

@@ -16,7 +16,8 @@ LPIPS weights the run is refused unless ``--allow_random_lpips``.
 Checkpoints go to ``exp_dir/step_*.pt`` (model, ``latent_avg``,
 ``avg_image``, optimizer, step); SIGTERM/SIGINT finish the step in flight,
 save, and return (the handlers are restored), and ``--resume`` continues
-from the newest checkpoint.
+from the newest checkpoint. ``run`` is the run loop, shared with
+``train_stage2_e4e``.
 """
 
 from __future__ import annotations
@@ -72,42 +73,62 @@ def _batches(ds, order, batch_size, device):
                     .to(device) for k in (0, 1))
 
 
+def lpips_from_args(args, device):
+    """The LPIPS-alex loss of ``--lpips_weights``, RANDOM features with
+    ``--allow_random_lpips``, or None at ``--lpips_lambda 0``; refuses a
+    positive lambda without either."""
+    from ..losses.perceptual import LPIPS
+    from ..nn.initializers import init_weights
+
+    if args.lpips_lambda <= 0:
+        return None
+    lpips_fn = LPIPS("alex")
+    if args.lpips_weights:
+        lpips_fn.load_state_dict(torch.load(
+            args.lpips_weights, map_location="cpu", weights_only=True))
+    elif args.allow_random_lpips:
+        print("[warn] --allow_random_lpips: using RANDOM LPIPS features "
+              "(debug only)")
+        init_weights(lpips_fn, torch.Generator().manual_seed(99))
+    else:
+        raise SystemExit(
+            "lpips_lambda > 0 but no --lpips_weights given: pass the "
+            "LPIPS weights, or --lpips_lambda 0, or opt in to random "
+            "features with --allow_random_lpips (debug only)")
+    return lpips_fn.requires_grad_(False).eval().to(device)
+
+
 def main(argv=None):
     args = _parse(argv)
 
-    from ..data.images_dataset import ImagesDataset
-    from ..losses.perceptual import LPIPS
-    from ..nn.initializers import init_weights
     from ..train.stage2 import Stage2Coach, Stage2Config
-    from ..utils.checkpoint import CheckpointManager, load_generator_handoff
     from ..utils.device import resolve_device
-    from ..utils.preempt import install_preemption_handler
 
     device = resolve_device(args.device)
-    lpips_fn = None
-    if args.lpips_lambda > 0:
-        lpips_fn = LPIPS("alex")
-        if args.lpips_weights:
-            lpips_fn.load_state_dict(torch.load(
-                args.lpips_weights, map_location="cpu", weights_only=True))
-        elif args.allow_random_lpips:
-            print("[warn] --allow_random_lpips: using RANDOM LPIPS features "
-                  "(debug only)")
-            init_weights(lpips_fn, torch.Generator().manual_seed(99))
-        else:
-            raise SystemExit(
-                "lpips_lambda > 0 but no --lpips_weights given: pass the "
-                "LPIPS weights, or --lpips_lambda 0, or opt in to random "
-                "features with --allow_random_lpips (debug only)")
-        lpips_fn = lpips_fn.requires_grad_(False).eval().to(device)
-
     cfg = Stage2Config(output_size=args.output_size,
                        n_iters_per_batch=args.n_iters_per_batch,
                        l2_lambda=args.l2_lambda,
                        lpips_lambda=args.lpips_lambda,
                        w_norm_lambda=args.w_norm_lambda,
                        learning_rate=args.learning_rate)
-    coach = Stage2Coach(cfg, lpips_fn=lpips_fn, device=str(device))
+    coach = Stage2Coach(cfg, lpips_fn=lpips_from_args(args, device),
+                        device=str(device))
+    noise = torch.Generator(device).manual_seed(3)
+    run(args, coach, device,
+        lambda step, x, y, avg: coach.train_step(x, y, avg, noise), noise)
+
+
+def run(args, coach, device, train_step, noise):
+    """The training run of ``coach``: ``--resume`` from the newest
+    checkpoint in exp_dir (with ``avg_image.npy``) or the generator of
+    ``--stylegan_weights`` and a new latent average and average image,
+    then ``train_step(step, x, y, avg_image)`` -> (loss, logs, y_hat) over
+    shuffled batches with logging, face grids, validation (noise from
+    ``noise``), checkpoints and preemption."""
+    from ..data.images_dataset import ImagesDataset
+    from ..utils.checkpoint import CheckpointManager, load_generator_handoff
+    from ..utils.preempt import install_preemption_handler
+
     os.makedirs(args.exp_dir, exist_ok=True)
     mgr = CheckpointManager(args.exp_dir)
     avg_path = os.path.join(args.exp_dir, "avg_image.npy")
@@ -152,18 +173,16 @@ def main(argv=None):
     stop = install_preemption_handler(tuple(handlers))
     try:
         _train(args, coach, mgr, ds, val_ds, avg_image, start_step, stop,
-               device)
+               device, train_step, noise)
     finally:
         for s, h in handlers.items():
             signal.signal(s, h)
 
 
 def _train(args, coach, mgr, ds, val_ds, avg_image, start_step, stop,
-           device):
+           device, train_step, noise):
     from ..eval.inference import face_grid
     from ..utils.logging import MetricLogger
-
-    noise = torch.Generator(device).manual_seed(3)
 
     def validate(max_batches):
         return coach.validate(
@@ -181,7 +200,7 @@ def _train(args, coach, mgr, ds, val_ds, avg_image, start_step, stop,
         while step < args.max_steps and not stop.is_set():
             for x, y in _batches(ds, rng.permutation(len(ds)),
                                  args.batch_size, device):
-                loss, logs, y_hat = coach.train_step(x, y, avg_image, noise)
+                loss, logs, y_hat = train_step(step, x, y, avg_image)
                 if step % 50 == 0:
                     logger.log(step, logs, prefix="train/")
                 if args.image_interval and step % args.image_interval == 0:

@@ -62,10 +62,25 @@ class Stage2Config:
     compute_dtype: str = "bfloat16"
 
 
+def cpu_optimizer_state(optimizer: torch.optim.Optimizer) -> Dict:
+    """``optimizer.state_dict()`` with its tensors copied to the CPU (its
+    per-parameter dicts are live: an optimizer loading them would share
+    them)."""
+    opt = optimizer.state_dict()
+    opt["state"] = {i: {k: v.to("cpu", copy=True) if torch.is_tensor(v)
+                        else v for k, v in st.items()}
+                    for i, st in opt["state"].items()}
+    return opt
+
+
 class Stage2Coach:
     """Owns the ``PSp`` (seeded random weights, on ``device``) and its
     optimizer. ``lpips_fn(y_hat, y)`` and ``id_loss_fn(y_hat, y, x)`` take
-    NHWC images; the latter returns (loss, similarity gain, logs)."""
+    NHWC images; the latter returns (loss, similarity gain, logs).
+    ``model_class`` is the model a subclass trains in place of ``PSp``
+    (the e4e coach's ``E4e``)."""
+
+    model_class = PSp
 
     def __init__(self, cfg: Stage2Config,
                  lpips_fn: Optional[Callable] = None,
@@ -76,7 +91,8 @@ class Stage2Coach:
                              f"float32|bfloat16")
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = PSp(output_size=cfg.output_size, input_nc=cfg.input_nc)
+        model = self.model_class(output_size=cfg.output_size,
+                                 input_nc=cfg.input_nc)
         init_weights(model, torch.Generator().manual_seed(seed))
         model.decoder.requires_grad_(cfg.train_decoder)
         self.model = model.to(self.device).train()
@@ -215,14 +231,10 @@ class Stage2Coach:
         """Weights, ``latent_avg`` and optimizer state, as copies on the
         CPU (an optimizer loading live tensors would share them); the keys
         of ``utils.checkpoint.save_checkpoint`` plus ``optimizer``."""
-        opt = self.optimizer.state_dict()   # its per-param dicts are live
-        opt["state"] = {i: {k: v.to("cpu", copy=True) if torch.is_tensor(v)
-                            else v for k, v in st.items()}
-                        for i, st in opt["state"].items()}
         return {"state_dict": {k: v.cpu() for k, v in
                                self.model.state_dict().items()},
                 "latent_avg": self.model.latent_avg.cpu(),
-                "optimizer": opt}
+                "optimizer": cpu_optimizer_state(self.optimizer)}
 
     def load_state_dict(self, ckpt: Dict) -> None:
         self.model.load_state_dict(ckpt["state_dict"], strict=True)

@@ -9,6 +9,9 @@
     (``backbone`` state_dict with its ``avg_image`` buffer, ``head``,
     ``optimizer``, ``opt_count``, ``avg_image``) and the epoch in its
     metadata.
+    An e4e file (``tools/train_stage2_e4e.py``) adds to the stage-2 keys
+    the latent discriminator (``discriminator``) and its Adam state
+    (``d_optimizer``); it loads as a ``PSp`` with ``load_checkpoint`` too.
     A stage-1 file holds ``Stage1Trainer.state_dict()``: ``g``, ``d``,
     ``g_ema`` (each a state_dict with its buffers: ``w_avg``,
     ``noise_const``), ``opt_g``, ``opt_d``, ``ada_p``, ``rt_accum``,

@@ -29,7 +29,11 @@ rules are those of the reference torch export:
 A stage-3 backbone thus loads whole (``PSpFaceRec``, ``Backbone``), and
 ``load_stage3_from_jax`` fills a ``Stage3Trainer`` from the JAX trainer's
 trees; ``load_stage1_from_jax`` fills a ``Stage1Trainer`` from the JAX
-stage-1 train state. ``PSp.latent_avg`` is out of band: not in the state_dict, set by
+stage-1 train state; ``load_e4e_from_jax`` fills an ``E4eCoach`` from the
+JAX e4e coach's (params, state, d_params). The pSp encoder family
+(``GradualStyleEncoder``, ``ResNetBackboneEncoder``, the "pSp" and "both"
+heads) and the e4e modules are made of the layers above.
+``PSp.latent_avg`` is out of band: not in the state_dict, set by
 ``load_from_jax``.
 """
 
@@ -207,3 +211,14 @@ def load_stage1_from_jax(trainer, jax_state: Mapping):
                                          device=trainer.device))
     trainer.step = int(np.asarray(jax_state["step"]))
     return trainer
+
+
+def load_e4e_from_jax(coach, params: Mapping, state: Mapping,
+                      d_params: Mapping):
+    """Fill a ``train.stage2_e4e.E4eCoach`` from the JAX e4e coach's
+    trees: the ``E4e`` strictly with its ``latent_avg``, the latent
+    discriminator strictly. Optimizer states are not carried (a fresh JAX
+    coach has none to carry)."""
+    load_from_jax(coach.model, params, state)
+    load_from_jax(coach.discriminator, d_params, {})
+    return coach

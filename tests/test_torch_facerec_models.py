@@ -299,8 +299,10 @@ def test_output_layer_dropout_rates():
     assert enc.output_layer[1].p == 0.5 and len(enc.body) == 24
     assert psp.PSpFaceRec().encoder.body[0].drop is None
     assert enc.output_layer[3].in_features == 512 * 7 * 7
-    with pytest.raises(NotImplementedError):
-        psp.BackboneEncoderDiffHead(output_layer_type="pSp")
+    assert isinstance(psp.BackboneEncoderDiffHead(
+        output_layer_type="pSp").output_layer, psp.PSPOutputLayer)
+    with pytest.raises(ValueError, match="output_layer_type"):
+        psp.BackboneEncoderDiffHead(output_layer_type="styles")
 
 
 @pytest.mark.parametrize("layer", ["2d", "1d"])

@@ -23,16 +23,18 @@ from stylegan_for_facerec_torch.utils.device import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# the stage-3 modules, which the walk below must reach
+# the stage-3 and e4e modules, which the walk below must reach
 STAGE3_MODULES = (
     "data.dataset", "data.packed", "eval.verification",
     "eval.verify_runner", "losses.focal", "models.heads", "train.stage3",
-    "tools.test_rfw", "tools.train_stage3", "utils.config")
+    "tools.test_rfw", "tools.train_stage3", "utils.config",
+    "models.e4e", "models.resnet", "train.stage2_e4e",
+    "tools.train_stage2_e4e")
 
 
 def test_port_imports_no_jax():
     """Every port module, and chip_smoke.py, import with jax blocked and
-    load nothing of the JAX package; the walk covers the stage-3
+    load nothing of the JAX package; the walk covers the stage-3 and e4e
     modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
