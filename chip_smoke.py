@@ -126,10 +126,39 @@ Phases, each fatal on failure (nonzero exit, no result line):
      encoder's "pSp" and "both" heads, 16 styles, seeded weights and
      BatchNorm statistics, eval mode, batch 8: the expected shapes, finite,
      no B1/B1b/B2/B2b launch, and the CPU's codes at batch 2.
+ 24. the rosinality StyleGAN2 generator at full width (256², style 512, 8
+     MLP layers, channel multiplier 2; seeded weights, biases and noise
+     weights), f32 batch 8: from z with const noise (21 B1: 8 in the style
+     MLP, 13 StyledConvs), from w with style mixing at inject_index 5 (13
+     B1), truncation 0.7 toward mean_latent, random noise from a
+     generator; no B2/B2b launch; the backward of the mean image from z to
+     every parameter (21 B1b); card vs CPU at batch 2 (images at phase 4's
+     tolerance; every gradient of a seeded weighting of the images at
+     phase 8's tolerance of a float64 CPU run's, or no further from it
+     than 4 times the CPU's f32 run); bf16 (autocast) against f32;
+     synthesis images/s at bf16 batch 128 and f32 batch 8 and a profile of
+     the bf16 one (the kernels' share of its device time). Phase 2 holds
+     B1/B1b without clamp at its shapes;
+ 25. the same for the StyleGAN2-ADA G with synthesis_layer="stylegan1" at
+     the pSp decoder's widths (13 B1, 12 B2 forward; 13 B1b, 12 B2b
+     backward), and EqualizedConv2d (256 -> 256 channels, lrelu, gain 0.5)
+     with resample up, down and none: launches each way, card vs CPU;
+ 26. InceptionV3 (FID variant, seeded weights and BatchNorm statistics)
+     pool3 features of 256 g_ema samples of phase 15's stage-1 G (128²,
+     resized to 299) and 256 seeded reals at batch 64 in f32 and bf16:
+     (B, 2048) finite, the first 8 against the CPU's (f32) or against f32
+     (bf16), embedding_fid of the reals with themselves ~0 and with the
+     samples and a shifted set > 0, no B1/B1b/B2/B2b launch, images/s, a
+     profile of the bf16 batch;
+ 27. 32 seeded PNG result/ground-truth pairs through calc_losses_on_images
+     (l2, lpips, id; seeded weights) and their identity folder through
+     extract_features_from_folder (a seeded IR-SE-50) on the card and on
+     the CPU: the same numbers within phase 14's tolerance, no launch.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
-as nvidia-smi reports them, and the ones before that the stage-1, stage-3
-and e4e numbers as JSON. Exits nonzero without a GPU.
+as nvidia-smi reports them, and the ones before that the stage-1, stage-3,
+e4e and phase 24-27 ("generators_fid_eval") numbers as JSON. Exits
+nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -178,8 +207,16 @@ from stylegan_for_facerec_torch.models.e4e import PROGRESSIVE_STAGE_INFERENCE
 from stylegan_for_facerec_torch.models.psp import (BackboneEncoderDiffHead,
                                                   PSpFaceRec, build_encoder,
                                                   build_psp, n_styles_for)
-from stylegan_for_facerec_torch.models.stylegan2 import discriminator_channels
-from stylegan_for_facerec_torch.models.stylegan2_ada import channels_for
+from stylegan_for_facerec_torch.eval.fid import embedding_fid
+from stylegan_for_facerec_torch.eval.inference import \
+    extract_features_from_folder
+from stylegan_for_facerec_torch.models import GeneratorRosinality, InceptionV3
+from stylegan_for_facerec_torch.models.irse import IR_SE_50
+from stylegan_for_facerec_torch.models.stylegan2 import (
+    EqualLinear, NoiseInjection, rosinality_channels)
+from stylegan_for_facerec_torch.models.stylegan2_ada import (
+    EqualizedConv2d, FullyConnectedLayer, Generator, channels_for)
+from stylegan_for_facerec_torch.tools import calc_losses_on_images
 from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build, resample
 from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
@@ -267,6 +304,26 @@ E4E_RATE_BATCH, E4E_F32_RATE_BATCH = 128, 32
 E4E_ENC_LAUNCHES = {"bias_act": 13, "bias_act_grad": 13,
                     "smooth_upsample": 12, "smooth_upsample_grad": 12}
 E4E_D_LAUNCHES = dict.fromkeys(E4E_ENC_LAUNCHES, 0)
+# the rest of stage 2's generator side: the rosinality G (the JAX
+# package's default family, at the size PSp runs), the StyleGAN1 ADA G at
+# the pSp decoder's widths, their launches per forward (from z; from w the
+# MLP's 8 B1 go) and per backward of a loss through both, the rate
+# batches; InceptionV3 on 256 stage-1 g_ema samples and 256 reals at batch
+# 64; the loss-evaluation folder's 32 pairs
+ROSI_SIZE, ROSI_STYLE_DIM, ROSI_N_MLP = 256, 512, 8
+ROSI_LAUNCHES = {"bias_act": 21, "bias_act_grad": 0, "smooth_upsample": 0,
+                 "smooth_upsample_grad": 0}
+SG1_LAUNCHES = {"bias_act": 13, "bias_act_grad": 0, "smooth_upsample": 12,
+                "smooth_upsample_grad": 0}
+GEN_RATES = (("bf16", 128), ("f32", BATCH))
+# a gradient on the card may be further than phase 8's tolerance from the
+# float64 run's where the CPU's own f32 run is too, by up to this factor
+ROUNDOFF_FACTOR = 4.0
+# bf16 against f32 on the same weights and w: 16 units of bf16 round-off
+# (2^-8) of the image's largest value, over 13-21 layers
+BF16_REL_TOL = 16 * 2.0 ** -8
+FID_N, FID_BATCH, FID_CPU = 256, 64, 8
+EVAL_PAIRS = 32
 
 
 def fail(msg: str):
@@ -305,7 +362,7 @@ def stage1_shapes(batch: int, size: int = 128):
         g_b1[(batch, ch[r], r, r)] = 2
         b2[(batch, ch[r], r // 2, r // 2)] = 1
         b2[(batch, 3, r // 2, r // 2)] = 1
-    dch = discriminator_channels(2)
+    dch = rosinality_channels(2)
     d_b1 = {}
 
     def add(shape):
@@ -321,16 +378,24 @@ def stage1_shapes(batch: int, size: int = 128):
     return {"g_b1": g_b1, "d_b1": d_b1, "b2": b2}
 
 
-def compare_stage1(gen, dname, dtype, errs):
-    """Stage 1's new uses of the kernels against the plain versions: B1
-    and B1b (dx, db, double backward) with no clamp at every shape of D's
-    activations at 128², batch 8, bit for bit; and B2b's backward, which
-    is B2 on a gradient, against the autograd of
-    ``smooth_upsample_grad_plain`` at every shape of the stage-1 G's
-    upsamples, with B2's tolerance. Returns the shapes checked."""
-    shapes = stage1_shapes(BATCH)
+def rosinality_shapes(batch: int, size: int = ROSI_SIZE):
+    """{shape: launches} of B1 (and B1b backward) in one forward of the
+    rosinality G at ``size`` from z: the 8 style-MLP layers on
+    (N, 512), ``conv1`` at 4x4 and two ``StyledConv``s at each larger
+    resolution (13 at 256²; channels of multiplier 2)."""
+    ch = rosinality_channels(2)
+    out = {(batch, ROSI_STYLE_DIM): ROSI_N_MLP, (batch, ch[4], 4, 4): 1}
+    for i in range(3, int(math.log2(size)) + 1):
+        out[(batch, ch[2 ** i], 2 ** i, 2 ** i)] = 2
+    return out
+
+
+def check_b1_no_clamp(gen, dname, dtype, shapes, errs):
+    """B1 and B1b (dx, db, double backward) with no clamp, the
+    ``fused_leaky_relu`` of the rosinality D and G, against the plain
+    versions at ``shapes``, bit for bit."""
     bits = torch.int32 if dname == "f32" else torch.int16
-    for shape in shapes["d_b1"]:
+    for shape in shapes:
         x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(
             dtype).requires_grad_()
         b = torch.randn(shape[1], generator=gen, device="cuda"
@@ -363,6 +428,17 @@ def compare_stage1(gen, dname, dtype, errs):
                  f"{(db - want_db).abs().max().item():.3e}")
         errs[("bias_act_grad", dname)] = max(
             errs[("bias_act_grad", dname)], err)
+
+
+def compare_stage1(gen, dname, dtype, errs):
+    """Stage 1's new uses of the kernels against the plain versions: B1
+    and B1b (dx, db, double backward) with no clamp at every shape of D's
+    activations at 128², batch 8, bit for bit; and B2b's backward, which
+    is B2 on a gradient, against the autograd of
+    ``smooth_upsample_grad_plain`` at every shape of the stage-1 G's
+    upsamples, with B2's tolerance. Returns the shapes checked."""
+    shapes = stage1_shapes(BATCH)
+    check_b1_no_clamp(gen, dname, dtype, shapes["d_b1"], errs)
     for shape in shapes["b2"]:
         n, c, h, w = shape
         x = torch.randn(shape, generator=gen, device="cuda").to(
@@ -624,6 +700,8 @@ def phase_compare(gen):
         if staged < 3:
             fail(f"B2 {dname}: only {staged} checks went through the staging")
         s1 = compare_stage1(gen, dname, dtype, errs)
+        rosinality = rosinality_shapes(BATCH)
+        check_b1_no_clamp(gen, dname, dtype, rosinality, errs)
     torch.cuda.synchronize()
     log(f"phase 2: kernels agree with their plain versions at "
         f"{len(b1_shapes)} B1/B1b and {len(b2_shapes)} B2/B2b shapes (the "
@@ -633,7 +711,9 @@ def phase_compare(gen):
         f"storage offset 1 (B2 staged and not); stage 1: B1 and B1b "
         f"(dx, db, double backward) without clamp at D's {len(s1['d_b1'])} "
         f"activation shapes at 128² bit for bit, B2b's backward (B2) at "
-        f"G's {len(s1['b2'])} upsample shapes; max abs err " + ", ".join(
+        f"G's {len(s1['b2'])} upsample shapes; the rosinality G's B1/B1b "
+        f"without clamp at its {len(rosinality)} shapes bit for bit; max "
+        f"abs err " + ", ".join(
             f"{k}/{d}={v:.3e}" for (k, d), v in errs.items()))
     return errs
 
@@ -2168,6 +2248,487 @@ def phase_encoders() -> dict:
     return out
 
 
+def seeded_generator_(model, seed: int):
+    """Every bias outside the style and mapping layers, every noise weight
+    and noise strength (zeros at init) moved by 0.1 N(0, 1) from ``seed``,
+    so that their paths count."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (EqualLinear, FullyConnectedLayer)):
+                continue
+            for k, p in mod.named_parameters(recurse=False):
+                if k in ("bias", "noise_strength") or isinstance(
+                        mod, NoiseInjection):
+                    p.add_(0.1 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def make_rosinality(device: str = "cuda"):
+    """The rosinality G at 256² (style 512, 8 MLP layers, channel
+    multiplier 2), weights from seed 0 drawn on the CPU."""
+    g = GeneratorRosinality(ROSI_SIZE, ROSI_STYLE_DIM, ROSI_N_MLP, 2)
+    init_weights(g, torch.Generator().manual_seed(0))
+    return seeded_generator_(g, 1).to(device).eval()
+
+
+def make_stylegan1(device: str = "cuda"):
+    """The StyleGAN2-ADA G with the StyleGAN1 layer family at the pSp
+    decoder's widths (z/w 512, 8 mapping layers, 256²), seed 0."""
+    g = Generator(512, 512, 8, OUTPUT_SIZE, synthesis_layer="stylegan1")
+    init_weights(g, torch.Generator().manual_seed(0))
+    return seeded_generator_(g, 1).to(device).eval()
+
+
+def check_image(label: str, img, shape):
+    if tuple(img.shape) != shape or not torch.isfinite(img).all():
+        fail(f"{label}: image {tuple(img.shape)} (expected {shape}) or not "
+             f"finite")
+
+
+def check_launches(label: str, got: dict, want: dict):
+    if got != want:
+        fail(f"{label}: launches {got}, expected {want}")
+
+
+def forward_backward(label: str, model, run, inputs, want_fwd: dict,
+                     want_bwd: dict) -> dict:
+    """``run(model, inputs)`` and the backward of its mean image to every
+    parameter, launches held per direction; every gradient finite."""
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    img = run(model, inputs)
+    torch.cuda.synchronize()
+    fwd = read_launches()
+    check_launches(f"{label} forward", fwd, want_fwd)
+    reset_launches()
+    img.float().mean().backward()
+    torch.cuda.synchronize()
+    bwd = read_launches()
+    check_launches(f"{label} backward", bwd, want_bwd)
+    for k, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"{label}: gradient of {k} missing or not finite")
+    model.zero_grad(set_to_none=True)
+    return {k: fwd[k] + bwd[k] for k in KERNELS}
+
+
+def card_vs_cpu(label: str, model, run, inputs) -> dict:
+    """``run`` at CPU_BATCH on the card, on a CPU copy of ``model`` and on
+    a float64 CPU copy: the card's output within CPU_REL_TOL of the CPU's
+    scale; after the backward of a seeded random weighting of the output
+    (not the mean: behind the StyleGAN1 layers' instance norm its
+    gradients are 0 by construction, round-off), every parameter's
+    gradient on the card within phase 8's tolerance of the float64 run's,
+    or no further from it than ROUNDOFF_FACTOR times the CPU's f32 run.
+    A scalar noise weight's gradient is a sum of up to a million products
+    that cancel to 1e-4 of their absolute sum, so f32 round-off alone can
+    move it by 10 % on either device (PERF.md, PR 8)."""
+    cpu = copy.deepcopy(model).cpu()
+    ref = copy.deepcopy(model).cpu().double()
+    outs = {}
+    t0 = time.perf_counter()
+    for m, dev in ((model, "cuda"), (cpu, "cpu"), (ref, "f64")):
+        m.zero_grad(set_to_none=True)
+        x = to_device(inputs, "cpu" if dev == "f64" else dev)
+        if dev == "f64":
+            x = [t.double() for t in x] if isinstance(x, list) else x.double()
+        y = run(m, x)
+        wt = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            77)).to(y.device, y.dtype)
+        (y * wt).sum().backward()
+        outs[dev] = y.detach().float().cpu()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    scale = outs["cpu"].abs().max().item()
+    if not err <= CPU_REL_TOL * scale:
+        fail(f"{label}: card and CPU outputs differ by {err:.3e} (scale "
+             f"{scale:.3e})")
+    res = {"output_rel_err": err / scale, "worst_grad_ratio": 0.0,
+           "cpu_f32_worst_grad_ratio": 0.0, "past_tolerance_as_cpu": []}
+    for (k, pc), pu, pr in zip(model.named_parameters(), cpu.parameters(),
+                               ref.parameters()):
+        rc = grad_ratio(pc.grad.detach().cpu().double(), pr.grad)
+        ru = grad_ratio(pu.grad.double(), pr.grad)
+        if rc > max(1.0, ROUNDOFF_FACTOR * ru):
+            fail(f"{label}: gradient {k} is {rc:.2f}x phase 8's tolerance "
+                 f"from the float64 run's (the CPU's f32 {ru:.2f}x)")
+        if rc > 1.0:
+            res["past_tolerance_as_cpu"].append([k, rc, ru])
+        if rc > res["worst_grad_ratio"]:
+            res.update(worst_grad_ratio=rc, worst_grad_tensor=k)
+        if ru > res["cpu_f32_worst_grad_ratio"]:
+            res.update(cpu_f32_worst_grad_ratio=ru,
+                       cpu_f32_worst_grad_tensor=k)
+    res["seconds"] = time.perf_counter() - t0
+    model.zero_grad(set_to_none=True)
+    return res
+
+
+def bf16_vs_f32(label: str, run, inputs) -> float:
+    """``run(inputs)`` under bf16 autocast against f32: finite, within
+    BF16_REL_TOL of the f32 output's largest value."""
+    with torch.no_grad():
+        want = run(inputs).float()
+        with torch.autocast("cuda", torch.bfloat16):
+            got = run(inputs).float()
+    if not torch.isfinite(got).all():
+        fail(f"{label}: bf16 output not finite")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel <= BF16_REL_TOL:
+        fail(f"{label}: bf16 differs from f32 by {rel:.3e} of scale")
+    return rel
+
+
+def no_grad_rate(run, inputs, batch: int, dname: str) -> dict:
+    """Images/s of ``run(inputs)`` without gradients (bf16: autocast) on
+    the host's clock over 3 calls, and its device ms."""
+    def fn():
+        with torch.no_grad(), torch.autocast(
+                "cuda", torch.bfloat16, enabled=dname == "bf16"):
+            return run(inputs)
+
+    if not torch.isfinite(fn()).all():
+        fail(f"non-finite output at {dname} batch {batch}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    return {"images_per_s": batch / ms * 1e3, "ms": ms,
+            "device_ms": cuda_time_ms(fn, reps=3, warmup=1)}
+
+
+def generator_rates(label: str, run, make_inputs_for) -> dict:
+    """``no_grad_rate`` at GEN_RATES and a profile of the bf16 batch-128
+    call: the four kernels' share of its device time."""
+    out = {}
+    for dname, batch in GEN_RATES:
+        inputs = make_inputs_for(batch)
+        r = no_grad_rate(run, inputs, batch, dname)
+        out[f"{dname}_batch{batch}"] = r
+        log(f"{label}: synthesis {dname} batch {batch}: "
+            f"{r['images_per_s']:.1f} images/s, {r['ms']:.2f} ms "
+            f"({r['device_ms']:.2f} ms device)")
+        if dname == "bf16":
+            details = {}
+
+            def fn():
+                with torch.no_grad(), torch.autocast("cuda",
+                                                     torch.bfloat16):
+                    return run(inputs)
+
+            totals = profile_breakdown(
+                f"{label}: profile of a bf16 batch-{batch} synthesis", fn,
+                details=details)
+            out["profile"] = {
+                "device_ms": details["device_ms"],
+                "wall_ms": details["wall_ms"],
+                "kernels_ms": {k: v[0] for k, v in totals.items()},
+                "kernel_launches": {k: v[1] for k, v in totals.items()},
+                "kernels_share": sum(v[0] for v in totals.values())
+                / details["device_ms"]}
+        del inputs
+    return out
+
+
+def phase_rosinality() -> dict:
+    """Phase 24: the rosinality G at full width on the card."""
+    G = make_rosinality()
+    zg = torch.Generator().manual_seed(60)
+    z, z2 = (torch.randn((BATCH, ROSI_STYLE_DIM), generator=zg).cuda()
+             for _ in range(2))
+    shape = (BATCH, 3, ROSI_SIZE, ROSI_SIZE)
+    from_w = dict(ROSI_LAUNCHES,
+                  bias_act=ROSI_LAUNCHES["bias_act"] - ROSI_N_MLP)
+    with torch.no_grad():
+        reset_launches()
+        check_image("phase 24 from z", G([z], randomize_noise=False), shape)
+        check_launches("phase 24 from z", read_launches(), ROSI_LAUNCHES)
+        w1, w2 = G.style_mlp(z), G.style_mlp(z2)
+        reset_launches()
+        img, lat = G([w1, w2], input_is_latent=True, inject_index=5,
+                     randomize_noise=False, return_latents=True)
+        check_image("phase 24 mixing", img, shape)
+        check_launches("phase 24 mixing", read_launches(), from_w)
+        if not (torch.equal(lat[:, :5], w1[:, None].expand(-1, 5, -1))
+                and torch.equal(lat[:, 5:], w2[:, None].expand(
+                    -1, G.n_latent - 5, -1))):
+            fail("phase 24: inject_index 5 did not split the latents at 5")
+        ml = G.mean_latent(4096, torch.Generator("cuda").manual_seed(61))
+        reset_launches()
+        img = G([z], truncation=0.7, truncation_latent=ml,
+                randomize_noise=False)
+        check_image("phase 24 truncation", img, shape)
+        check_launches("phase 24 truncation", read_launches(),
+                       ROSI_LAUNCHES)
+        check_image("phase 24 random noise", G(
+            [z, z2], generator=torch.Generator("cuda").manual_seed(62)),
+            shape)
+    launches = forward_backward(
+        "phase 24 mean-image loss from z", G,
+        lambda m, x: m([x], randomize_noise=False), z, ROSI_LAUNCHES,
+        dict(ROSI_LAUNCHES, bias_act=0,
+             bias_act_grad=ROSI_LAUNCHES["bias_act"]))
+    cpu = card_vs_cpu(
+        "phase 24 card vs CPU", G,
+        lambda m, x: m(list(x), inject_index=5, randomize_noise=False),
+        [z[:CPU_BATCH], z2[:CPU_BATCH]])
+    synth = (lambda w: G([w], input_is_latent=True, randomize_noise=False))
+    bf16 = bf16_vs_f32("phase 24 bf16", synth, w1)
+    log(f"phase 24: rosinality G({ROSI_SIZE}) batch {BATCH}: from z, w "
+        f"mixing at 5, truncation 0.7 toward mean_latent, random noise: "
+        f"finite; launches from z {ROSI_LAUNCHES['bias_act']} B1, from w "
+        f"{from_w['bias_act']}, no B2/B2b; forward + backward {launches}; "
+        f"card vs CPU at "
+        f"batch {CPU_BATCH}: image rel {cpu['output_rel_err']:.2e}, worst "
+        f"gradient against float64 {cpu['worst_grad_tensor']} at "
+        f"{cpu['worst_grad_ratio']:.3f} of its tolerance (the CPU's f32 "
+        f"{cpu['cpu_f32_worst_grad_tensor']} at "
+        f"{cpu['cpu_f32_worst_grad_ratio']:.3f}; past it on the card as on "
+        f"the CPU: {cpu['past_tolerance_as_cpu']}); bf16 vs f32 {bf16:.2e} "
+        f"of scale")
+    del w1, w2, ml, img, lat
+
+    def ws_for(batch):
+        g = torch.Generator().manual_seed(63)
+        with torch.no_grad():
+            return G.style_mlp(torch.randn((batch, ROSI_STYLE_DIM),
+                                           generator=g).cuda())
+
+    rates = generator_rates("phase 24", synth, ws_for)
+    del G
+    return {"launches_fwd_bwd": launches, "cpu_vs_card": cpu,
+            "bf16_vs_f32_rel": bf16, "rates": rates}
+
+
+def phase_stylegan1() -> dict:
+    """Phase 25: the StyleGAN1 ADA G at the pSp decoder's widths, and
+    ``EqualizedConv2d`` up, down and none, on the card."""
+    G = make_stylegan1()
+    zg = torch.Generator().manual_seed(64)
+    z = torch.randn((BATCH, 512), generator=zg).cuda()
+    shape = (BATCH, 3, OUTPUT_SIZE, OUTPUT_SIZE)
+    with torch.no_grad():
+        check_image("phase 25 random noise", G(
+            z, generator=torch.Generator("cuda").manual_seed(65)), shape)
+        ws = G.mapping(z)
+    run = (lambda m, x: m(x, noise_mode="const"))
+    launches = forward_backward(
+        "phase 25 mean-image loss from z", G, run, z, SG1_LAUNCHES,
+        {"bias_act": 0, "bias_act_grad": SG1_LAUNCHES["bias_act"],
+         "smooth_upsample": 0,
+         "smooth_upsample_grad": SG1_LAUNCHES["smooth_upsample"]})
+    cpu = card_vs_cpu("phase 25 card vs CPU", G, run, z[:CPU_BATCH])
+    synth = (lambda w: G.synthesis(w, noise_mode="const"))
+    bf16 = bf16_vs_f32("phase 25 bf16", synth, ws)
+    convs = {}
+    for resample in ("up", "down", "none"):
+        conv = EqualizedConv2d(256, 256, 3, activation="lrelu",
+                               resample=resample)
+        init_weights(conv, torch.Generator().manual_seed(66))
+        conv = seeded_generator_(conv, 67).cuda()
+        # an input that needs its gradient, so the backward runs B2b
+        x = torch.randn((BATCH, 256, 32, 32),
+                        generator=torch.Generator().manual_seed(68)).cuda()
+        x.requires_grad_()
+        up = int(resample == "up")
+        got = forward_backward(
+            f"phase 25 EqualizedConv2d {resample}", conv,
+            lambda m, t: m(t, gain=0.5), x,
+            {"bias_act": 1, "bias_act_grad": 0, "smooth_upsample": up,
+             "smooth_upsample_grad": 0},
+            {"bias_act": 0, "bias_act_grad": 1, "smooth_upsample": 0,
+             "smooth_upsample_grad": up})
+        convs[resample] = {"launches_fwd_bwd": got, "cpu_vs_card":
+                           card_vs_cpu(f"phase 25 EqualizedConv2d "
+                                       f"{resample}", conv,
+                                       lambda m, t: m(t, gain=0.5),
+                                       x.detach()[:CPU_BATCH])}
+    log(f"phase 25: StyleGAN1 G({OUTPUT_SIZE}) batch {BATCH}: forward + "
+        f"backward {launches}; card vs CPU at batch {CPU_BATCH}: image rel "
+        f"{cpu['output_rel_err']:.2e}, worst gradient against float64 "
+        f"{cpu['worst_grad_tensor']} at {cpu['worst_grad_ratio']:.3f} of "
+        f"its tolerance (the CPU's f32 {cpu['cpu_f32_worst_grad_tensor']} "
+        f"at {cpu['cpu_f32_worst_grad_ratio']:.3f}; past it on the card as "
+        f"on the CPU: {cpu['past_tolerance_as_cpu']}); bf16 vs f32 "
+        f"{bf16:.2e} of scale; EqualizedConv2d "
+        + ", ".join(f"{k}: rel {v['cpu_vs_card']['output_rel_err']:.2e}, "
+                    f"grads {v['cpu_vs_card']['worst_grad_ratio']:.3f}"
+                    for k, v in convs.items()))
+    del ws
+
+    def ws_for(batch):
+        g = torch.Generator().manual_seed(69)
+        with torch.no_grad():
+            return G.mapping(torch.randn((batch, 512), generator=g).cuda())
+
+    rates = generator_rates("phase 25", synth, ws_for)
+    del G
+    return {"launches_fwd_bwd": launches, "cpu_vs_card": cpu,
+            "bf16_vs_f32_rel": bf16, "equalized_conv": convs,
+            "rates": rates}
+
+
+def phase_inception(g_ema) -> dict:
+    """Phase 26: InceptionV3 (FID variant, seeded weights and BatchNorm
+    statistics) features of FID_N stage-1 g_ema samples (128², resized to
+    299) and FID_N seeded reals at batch FID_BATCH, in f32 and bf16."""
+    net = InceptionV3()
+    init_weights(net, torch.Generator().manual_seed(70))
+    net = seeded_batchnorm_(net, 71).cuda().eval()
+    zg = torch.Generator("cuda").manual_seed(72)
+    fakes = []
+    with torch.no_grad():
+        for _ in range(FID_N // FID_BATCH):
+            z = torch.randn((FID_BATCH, g_ema.z_dim), generator=zg,
+                            device="cuda")
+            fakes.append(g_ema(z, generator=zg).float())
+    fakes = torch.cat(fakes)
+    reals = stage1_reals(FID_N, seed=73).permute(0, 3, 1, 2).contiguous()
+    reals = reals.cuda()
+    shifted = (reals + 0.5).clamp(-1, 1)
+    out, f32_feats = {}, None
+    for dname in ("f32", "bf16"):
+        def embed(x, _bf16=dname == "bf16"):
+            with torch.no_grad(), torch.autocast("cuda", torch.bfloat16,
+                                                 enabled=_bf16):
+                return net(x).float()
+
+        reset_launches()
+        feats = torch.cat([embed(fakes[i: i + FID_BATCH])
+                           for i in range(0, FID_N, FID_BATCH)])
+        torch.cuda.synchronize()
+        check_launches(f"phase 26 {dname}", read_launches(),
+                       dict.fromkeys(KERNELS, 0))
+        if tuple(feats.shape) != (FID_N, 2048) or \
+                not torch.isfinite(feats).all():
+            fail(f"phase 26 {dname}: features {tuple(feats.shape)} or not "
+                 f"finite")
+        res = {}
+        if dname == "f32":
+            f32_feats = feats
+            with torch.no_grad():
+                want = copy.deepcopy(net).cpu()(fakes[:FID_CPU].cpu())
+            err = (feats[:FID_CPU].cpu() - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not err <= CPU_REL_TOL * scale:
+                fail(f"phase 26: card and CPU features differ by {err:.3e} "
+                     f"(scale {scale:.3e})")
+            res["cpu_rel_err"] = err / scale
+        else:
+            rel = ((feats - f32_feats).abs().max()
+                   / f32_feats.abs().max()).item()
+            if not rel <= BF16_REL_TOL:
+                fail(f"phase 26: bf16 features differ from f32 by {rel:.3e}")
+            res["bf16_vs_f32_rel"] = rel
+        fid = {k: embedding_fid(embed, reals, other, FID_BATCH)
+               for k, other in (("same", reals), ("g_ema", fakes),
+                                ("shifted", shifted))}
+        trace = float(torch.var(f32_feats.double(), dim=0).sum())
+        if not (abs(fid["same"]) <= 1e-3 * trace
+                and fid["g_ema"] > 10 * abs(fid["same"])
+                and fid["shifted"] > 10 * abs(fid["same"])):
+            fail(f"phase 26 {dname}: FID {fid} (feature variance {trace})")
+        ms = cuda_time_ms(lambda: embed(fakes[:FID_BATCH]), reps=5,
+                          warmup=1)
+        res.update(fid=fid, device_ms=ms,
+                   images_per_s=FID_BATCH / ms * 1e3)
+        if dname == "bf16":
+            details = {}
+            profile_breakdown(f"phase 26: profile of InceptionV3 bf16 batch "
+                              f"{FID_BATCH}",
+                              lambda: embed(fakes[:FID_BATCH]),
+                              details=details)
+            res["profile"] = details
+        out[dname] = res
+        log(f"phase 26: InceptionV3 {dname} batch {FID_BATCH}: features "
+            f"({FID_N}, 2048) finite, no B1/B1b/B2/B2b launch, "
+            + (f"card vs CPU rel {res['cpu_rel_err']:.2e}" if dname == "f32"
+               else f"vs f32 rel {res['bf16_vs_f32_rel']:.2e}")
+            + f"; FID reals/reals {fid['same']:.3e}, reals/g_ema "
+            f"{fid['g_ema']:.4f}, reals/shifted {fid['shifted']:.4f}; "
+            f"{ms:.2f} ms device a batch ({res['images_per_s']:.1f} "
+            f"images/s)")
+    del net, fakes, reals, shifted
+    return out
+
+
+def write_eval_folder(root: str, n: int, seed: int = 74):
+    """``res/`` and ``gt/`` with n seeded 128 px PNG pairs of the same
+    names, and ``faces/<identity>/`` with the ground truths under 4
+    identities."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:128, 0:128] / 128.0
+    for sub in ("res", "gt", "faces"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(n):
+        base = np.stack([np.sin(6 * xx + i), np.cos(5 * yy + i), xx * yy],
+                        -1)
+        gt = 127.5 + 90 * base + 10 * rng.randn(128, 128, 3)
+        res = gt + 25 * rng.randn(128, 128, 3)
+        for sub, img in (("gt", gt), ("res", res)):
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(root, sub, f"{i:03d}.png"))
+        ident = os.path.join(root, "faces", f"id{i % 4}")
+        os.makedirs(ident, exist_ok=True)
+        Image.fromarray(np.clip(gt, 0, 255).astype(np.uint8)).save(
+            os.path.join(ident, f"{i:03d}.png"))
+
+
+def phase_eval_tools() -> dict:
+    """Phase 27: EVAL_PAIRS seeded result/GT pairs through the
+    ``calc_losses_on_images`` CLI (l2, lpips, id; seeded weights) and the
+    identity folder through ``extract_features_from_folder`` (a seeded
+    IR-SE-50), on the card and on the CPU."""
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_eval_folder(root, EVAL_PAIRS)
+        argv = ["--data_path", os.path.join(root, "res"), "--gt_path",
+                os.path.join(root, "gt"), "--mode", "l2", "lpips", "id",
+                "--batch_size", "16", "--device"]
+        reset_launches()
+        card = calc_losses_on_images.main(argv + ["cuda"])
+        torch.cuda.synchronize()
+        check_launches("phase 27 calc_losses", read_launches(),
+                       dict.fromkeys(KERNELS, 0))
+        cpu = calc_losses_on_images.main(argv + ["cpu"])
+        for mode, stats in cpu.items():
+            for k, v in stats.items():
+                if not abs(card[mode][k] - v) <= CPU_REL_TOL * abs(v):
+                    fail(f"phase 27: {mode} {k} card {card[mode][k]} vs CPU "
+                         f"{v}")
+        out["losses"] = {"card": card, "cpu": cpu}
+        net = IR_SE_50(112)
+        init_weights(net, torch.Generator().manual_seed(75))
+        net = seeded_batchnorm_(net, 76).eval()
+        cpu_net = copy.deepcopy(net)
+        faces = os.path.join(root, "faces")
+        reset_launches()
+        feats = extract_features_from_folder(net, faces, batch_size=16)
+        torch.cuda.synchronize()
+        check_launches("phase 27 features", read_launches(),
+                       dict.fromkeys(KERNELS, 0))
+        want = extract_features_from_folder(cpu_net, faces, batch_size=16,
+                                            device="cpu")
+        err = float(np.abs(feats - want).max())
+        norms = np.linalg.norm(feats, axis=1)
+        if feats.shape != (EVAL_PAIRS, 512) or not np.allclose(norms, 1,
+                                                                atol=1e-5):
+            fail(f"phase 27: features {feats.shape}, norms {norms.min()} - "
+                 f"{norms.max()}")
+        if not err <= CPU_REL_TOL:
+            fail(f"phase 27: card and CPU features differ by {err:.3e}")
+        out["features_cpu_abs_err"] = err
+    log(f"phase 27: calc_losses_on_images over {EVAL_PAIRS} pairs, card vs "
+        f"CPU: " + ", ".join(f"{m} {card[m]['mean']:.6f} vs "
+                             f"{cpu[m]['mean']:.6f}" for m in cpu)
+        + f"; extract_features_from_folder ({EVAL_PAIRS}, 512) card vs "
+        f"CPU {err:.2e}; no B1/B1b/B2/B2b launch")
+    return out
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2260,6 +2821,7 @@ def main():
               "launches_per_step_type": s1_per_step, "logs": s1_logs,
               "cpu_vs_card": phase_stage1_cpu_reference()}
     stage1.update(phase_stage1_rates(tr1, gen))
+    s1_g_ema = tr1.g_ema
     del tr1
 
     e4e_coach, e4e_avg = ready_coach(make_e4e_coach)
@@ -2272,6 +2834,10 @@ def main():
     e4e.update(phase_e4e_rates(e4e_coach, e4e_avg))
     del e4e_coach
     e4e["encoders_cpu_rel_err"] = phase_encoders()
+    gens = {"rosinality": phase_rosinality(), "stylegan1": phase_stylegan1(),
+            "inception": phase_inception(s1_g_ema)}
+    del s1_g_ema
+    gens["eval_tools"] = phase_eval_tools()
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -2293,6 +2859,10 @@ def main():
             + s3_verify_launches[name],
             "launches_stage1": s1_launches[name],
             "launches_e4e": e4e_launches[name],
+            "launches_rosinality": gens["rosinality"]["launches_fwd_bwd"][
+                name],
+            "launches_stylegan1": gens["stylegan1"]["launches_fwd_bwd"][
+                name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -2305,6 +2875,7 @@ def main():
     print(json.dumps({"stage3": stage3}))
     print(json.dumps({"stage1": stage1}))
     print(json.dumps({"e4e": e4e}))
+    print(json.dumps({"generators_fid_eval": gens}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

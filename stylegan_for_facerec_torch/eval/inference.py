@@ -1,5 +1,6 @@
 """Iterative ReStyle inversion (``run_on_batch``), encoder bootstrapping
-(``encoder_bootstrap``), ``tensor2im`` and ``face_grid``.
+(``encoder_bootstrap``), feature extraction (``extract_features_from_folder``,
+``extract_feature_single``), ``tensor2im`` and ``face_grid``.
 
 Public layout is NHWC, as in the JAX package: images in and out are
 (B, H, W, 3) in [-1, 1]."""
@@ -12,7 +13,8 @@ import numpy as np
 import torch
 
 from ..models.psp import PSp
-from ..ops.image import resize_bilinear
+from ..ops.image import hflip, resize_bilinear
+from ..utils.device import resolve_device
 
 
 def run_on_batch(model: PSp, inputs: torch.Tensor, avg_image: torch.Tensor,
@@ -51,6 +53,61 @@ def encoder_bootstrap(model1: PSp, model2: PSp, inputs: torch.Tensor,
         # resize back to the input size for the next conditioning
         cond = resize_bilinear(y_hat, h, w)
     return torch.stack(outs), torch.stack(lats)
+
+
+def extract_features_from_folder(backbone: torch.nn.Module, root: str,
+                                 input_size: int = 112,
+                                 emb_size: int = 512, batch_size: int = 256,
+                                 tta: bool = True,
+                                 device: str = "cuda") -> np.ndarray:
+    """(N, emb_size) L2-normalized embeddings of the images of a
+    ``<root>/<identity>/<file>`` tree in ``FacesDataset`` order: each
+    resized to 128 * input_size / 112, centre-cropped to 112 without the
+    uint8 round trip, the image and its mirror embedded and summed. A
+    corrupt file embeds a zero image."""
+    from ..data.dataset import FacesDataset
+    from .verify_runner import compute_embeddings, make_embed_fn
+
+    ds = FacesDataset(root, image_size=int(128 * input_size / 112))
+    s = ds.image_size
+    imgs = []
+    for i in range(len(ds)):
+        item = ds.load(i)
+        imgs.append(np.zeros((s, s, 3), np.float32) if item is None
+                    else item[0])
+    arr = np.stack(imgs) if imgs else np.zeros((0, s, s, 3), np.float32)
+    embed = make_embed_fn(backbone, tta=tta, ccrop=True, device=device,
+                          quantize=False)
+    return compute_embeddings(embed, arr, batch_size, emb_size)
+
+
+@torch.no_grad()
+def extract_feature_single(backbone: torch.nn.Module, img_path: str,
+                           tta: bool = True,
+                           device: str = "cuda") -> np.ndarray:
+    """(1, emb) L2-normalized embedding of one image file: read with cv2
+    (BGR), resized to 128, centre-cropped to 112, to RGB, (x - 127.5) /
+    128, the image and its mirror embedded and summed. cv2 is imported
+    here, only when called."""
+    import cv2
+
+    dev = resolve_device(device)
+    img = cv2.imread(img_path)
+    if img is None:
+        raise FileNotFoundError(f"cv2 cannot read {img_path}")
+    cc = cv2.resize(img, (128, 128))[8:120, 8:120][..., ::-1]
+    x = torch.from_numpy((np.asarray(cc, np.float32) - 127.5) / 128.0)
+    x = x[None].to(dev)
+    backbone.to(dev)
+    was_training = backbone.training
+    backbone.eval()
+    try:
+        e = backbone(x.permute(0, 3, 1, 2)).float()
+        if tta:
+            e = e + backbone(hflip(x).permute(0, 3, 1, 2)).float()
+    finally:
+        backbone.train(was_training)
+    return (e / torch.linalg.norm(e, dim=1, keepdim=True)).cpu().numpy()
 
 
 def tensor2im(x) -> np.ndarray:

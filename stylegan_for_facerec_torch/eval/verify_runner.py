@@ -23,12 +23,14 @@ from .verification import evaluate
 
 
 def make_embed_fn(backbone: nn.Module, tta: bool = True, ccrop: bool = True,
-                  device: str = "cuda",
-                  compute_dtype: str = "float32") -> Callable:
+                  device: str = "cuda", compute_dtype: str = "float32",
+                  quantize: bool = True) -> Callable:
     """(B, H, W, 3) [-1, 1] tensor -> (B, emb) float32 embeddings on
     ``device``: emb = backbone(ccrop(x)) [+ backbone(hflip(ccrop(x)))],
-    then L2-normalized. ``compute_dtype="bfloat16"`` runs the backbone
-    under autocast. Moves ``backbone`` to ``device``."""
+    then L2-normalized. ``quantize`` puts the centre crop's input and
+    output through the uint8 round trip (the reference's PIL path);
+    ``compute_dtype="bfloat16"`` runs the backbone under autocast. Moves
+    ``backbone`` to ``device``."""
     dev = resolve_device(device)
     backbone.to(dev)
     bf16 = compute_dtype == "bfloat16"
@@ -42,7 +44,7 @@ def make_embed_fn(backbone: nn.Module, tta: bool = True, ccrop: bool = True,
         try:
             x = images.to(dev, torch.float32, non_blocking=True)
             if ccrop:
-                x = ccrop_tta(x)
+                x = ccrop_tta(x, quantize=quantize)
             with torch.autocast(dev.type, dtype=torch.bfloat16,
                                 enabled=bf16):
                 e = backbone(x.permute(0, 3, 1, 2)).float()

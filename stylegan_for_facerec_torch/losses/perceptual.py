@@ -120,10 +120,14 @@ class LPIPS(nn.Module):
             normal_(lin.weight, generator, std=0.1).abs_()
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.per_sample(x, y).sum() / x.shape[0]
+
+    def per_sample(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """(N,) LPIPS of each pair: ``forward`` of that pair alone."""
         x = (x.permute(0, 3, 1, 2) - self.mean) / self.std
         y = (y.permute(0, 3, 1, 2) - self.mean) / self.std
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        total = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         for lin, a, b in zip(self.lin, self.net(x), self.net(y)):
-            r = lin(torch.square(a - b))
-            total = total + r.float().mean(dim=(2, 3)).sum()
-        return total / x.shape[0]
+            total = total + lin(torch.square(a - b)).float().mean(
+                dim=(1, 2, 3))
+        return total

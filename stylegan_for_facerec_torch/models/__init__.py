@@ -1,4 +1,5 @@
 from .heads import HEAD_REGISTRY, build_head
+from .inception import InceptionV3
 from .irse import (IR_50, IR_101, IR_152, IR_SE_50, IR_SE_101, IR_SE_152,
                    Backbone, l2_norm)
 from .e4e import (E4e, LatentCodesDiscriminator, LatentCodesPool,
@@ -7,12 +8,18 @@ from .psp import (ENCODER_TYPES, BackboneEncoder, BackboneEncoderDiffHead,
                   GradualStyleEncoder, PSPOutputLayer, PSp, PSpFaceRec,
                   ResNetBackboneEncoder, build_encoder, build_psp,
                   n_styles_for, style_spatial_for)
+from .stylegan2 import Discriminator
+from .stylegan2 import Generator as GeneratorRosinality
+from .stylegan2_ada import (FullyConnectedLayer, Generator, MappingNetwork,
+                            SynthesisNetwork)
 
-__all__ = ["Backbone", "BackboneEncoder", "BackboneEncoderDiffHead", "E4e",
-           "ENCODER_TYPES", "GradualStyleEncoder", "HEAD_REGISTRY", "IR_50",
-           "IR_101", "IR_152", "IR_SE_50", "IR_SE_101", "IR_SE_152",
-           "LatentCodesDiscriminator", "LatentCodesPool",
+__all__ = ["Backbone", "BackboneEncoder", "BackboneEncoderDiffHead",
+           "Discriminator", "E4e", "ENCODER_TYPES", "FullyConnectedLayer",
+           "Generator", "GeneratorRosinality", "GradualStyleEncoder",
+           "HEAD_REGISTRY", "IR_50", "IR_101", "IR_152", "IR_SE_50",
+           "IR_SE_101", "IR_SE_152", "InceptionV3",
+           "LatentCodesDiscriminator", "LatentCodesPool", "MappingNetwork",
            "ProgressiveBackboneEncoder", "PSPOutputLayer", "PSp",
-           "PSpFaceRec", "ResNetBackboneEncoder", "build_encoder",
-           "build_head", "build_psp", "l2_norm", "n_styles_for",
-           "style_spatial_for"]
+           "PSpFaceRec", "ResNetBackboneEncoder", "SynthesisNetwork",
+           "build_encoder", "build_head", "build_psp", "l2_norm",
+           "n_styles_for", "style_spatial_for"]

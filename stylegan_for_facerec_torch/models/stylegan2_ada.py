@@ -10,6 +10,13 @@ stage-1 training gathers its draws).
 
 The mapping network tracks ``w_avg`` in train mode and applies the
 truncation trick, as ``stylegan_for_facerec_tpu/models/stylegan2_ada.py``.
+
+``synthesis_layer="stylegan1"`` builds the StyleGAN1 layer family in
+place of the modulated one: ``SynthesisLayer1`` (equalized conv -> smooth
+upsample (B2) -> noise -> bias + lrelu + clamp (B1) -> ``AdaIN`` with the
+affine of w split into gamma and beta) and ``ToRGBLayer1`` (a style-free
+1x1 conv). ``EqualizedConv2d`` is the equalized conv with optional smooth
+resampling and ``clamp_gain`` that the JAX package keeps beside them.
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.initializers import normal_
+from ..nn.layers import InstanceNorm2d
 from ..ops.fused_act import bias_act
 from ..ops.modconv import modulated_conv2d
-from ..ops.resample import smooth_upsample
+from ..ops.resample import smooth_downsample, smooth_upsample
 
 _NOISE_MODES = ("const", "none", "random")
+_SYNTHESIS_LAYERS = ("stylegan2", "stylegan1")
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = -1,
@@ -70,6 +79,45 @@ class FullyConnectedLayer(nn.Module):
         if self.activation == "lrelu":
             y = torch.where(y >= 0, y, 0.2 * y) * math.sqrt(2)
         return y
+
+
+class EqualizedConv2d(nn.Module):
+    """Equalized conv: weight (O, I, k, k) stored as N(0, 1), run-time gain
+    1 / sqrt(I k^2); ``resample`` "up" (smooth 2x upsample, kernel B2),
+    "down" (``smooth_downsample``) or "none" before a pad-k//2 conv; then
+    ``clamp_gain(act(x + b), act_gain * gain, 256 * gain)``, which is
+    ``bias_act`` (kernel B1)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 bias: bool = True, activation: str = "linear",
+                 resample: str = "none"):
+        super().__init__()
+        if resample not in ("none", "up", "down"):
+            raise ValueError(f"resample {resample!r}: none|up|down")
+        if activation not in ("linear", "lrelu"):
+            raise ValueError(f"activation {activation!r}: linear|lrelu")
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.kernel_size = kernel_size
+        self.activation, self.resample = activation, resample
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator):
+        normal_(self.weight, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+        w = self.weight.to(x.dtype) * self.weight_gain
+        if self.resample == "up":
+            x = smooth_upsample(x)
+        elif self.resample == "down":
+            x = smooth_downsample(x)
+        y = F.conv2d(x, w, padding=self.kernel_size // 2)
+        return bias_act(y, self.bias, act=self.activation, gain=gain,
+                        clamp=256.0)
 
 
 class MappingNetwork(nn.Module):
@@ -120,6 +168,28 @@ class MappingNetwork(nn.Module):
         return x
 
 
+def _add_noise(x, strength, noise_const, noise_mode, generator, noise,
+               resolution):
+    """x plus the layer's noise times ``strength``: a draw from
+    ``generator`` (or the given ``noise``) in "random" mode, the stored
+    ``noise_const`` in "const" mode, nothing in "none" mode."""
+    if noise_mode not in _NOISE_MODES:
+        raise ValueError(f"noise_mode must be one of {_NOISE_MODES}")
+    ns = strength.to(x.dtype)
+    if noise_mode == "random":
+        if noise is None:
+            if generator is None:
+                raise ValueError("noise_mode='random' needs a "
+                                 "torch.Generator or given noise")
+            noise = torch.randn((x.shape[0], 1, resolution, resolution),
+                                generator=generator, device=x.device,
+                                dtype=x.dtype)
+        return x + noise.to(x.dtype) * ns
+    if noise_mode == "const":
+        return x + noise_const.to(x.dtype) * ns
+    return x
+
+
 class SynthesisLayer(nn.Module):
     """Affine styles -> modulated conv (pad k//2) -> optional smooth 2x
     upsample -> noise -> bias + lrelu + sqrt(2) gain, clamped at 256."""
@@ -150,25 +220,13 @@ class SynthesisLayer(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``noise`` (N, 1, res, res) replaces the random draw."""
-        if noise_mode not in _NOISE_MODES:
-            raise ValueError(f"noise_mode must be one of {_NOISE_MODES}")
         styles = self.affine(w)
         x = modulated_conv2d(x, self.weight, styles,
                              padding=self.kernel_size // 2, demodulate=True)
         if self.up:
             x = smooth_upsample(x)
-        ns = self.noise_strength.to(x.dtype)
-        if noise_mode == "random":
-            if noise is None:
-                if generator is None:
-                    raise ValueError("noise_mode='random' needs a "
-                                     "torch.Generator or given noise")
-                noise = torch.randn((x.shape[0], 1, self.resolution,
-                                     self.resolution), generator=generator,
-                                    device=x.device, dtype=x.dtype)
-            x = x + noise.to(x.dtype) * ns
-        elif noise_mode == "const":
-            x = x + self.noise_const.to(x.dtype) * ns
+        x = _add_noise(x, self.noise_strength, self.noise_const, noise_mode,
+                       generator, noise, self.resolution)
         return bias_act(x, self.bias, act="lrelu", clamp=256.0)
 
 
@@ -197,17 +255,100 @@ class ToRGBLayer(nn.Module):
                            256)
 
 
+class AdaIN(nn.Module):
+    """Instance norm, then the style's first half as gamma and its second
+    as beta: ``gamma * norm(x) + beta`` per sample and channel."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.norm = InstanceNorm2d(in_channels)
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        gamma, beta = style.to(x.dtype).chunk(2, dim=1)
+        return gamma[:, :, None, None] * self.norm(x) + beta[:, :, None, None]
+
+
+class SynthesisLayer1(nn.Module):
+    """StyleGAN1 synthesis layer: equalized conv (pad k//2) -> optional
+    smooth 2x upsample -> noise -> bias + lrelu + sqrt(2) gain, clamped at
+    256 -> ``AdaIN`` with ``affine(w)`` (2 * out_channels, bias 1) as
+    (gamma, beta). The arguments and noise modes of ``SynthesisLayer``."""
+
+    def __init__(self, in_channels: int, out_channels: int, w_dim: int,
+                 resolution: int, kernel_size: int = 3, up: bool = False):
+        super().__init__()
+        self.resolution = resolution
+        self.kernel_size = kernel_size
+        self.up = up
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.affine = FullyConnectedLayer(w_dim, out_channels * 2,
+                                          bias_init=1.0)
+        self.ada_in = AdaIN(out_channels)
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.noise_strength = nn.Parameter(torch.zeros(1))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.register_buffer("noise_const",
+                             torch.zeros(resolution, resolution))
+
+    init_weights_ = SynthesisLayer.init_weights_
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor,
+                noise_mode: str = "random",
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        styles = self.affine(w)
+        x = F.conv2d(x, self.weight.to(x.dtype) * self.weight_gain,
+                     padding=self.kernel_size // 2)
+        if self.up:
+            x = smooth_upsample(x)
+        x = _add_noise(x, self.noise_strength, self.noise_const, noise_mode,
+                       generator, noise, self.resolution)
+        x = bias_act(x, self.bias, act="lrelu", clamp=256.0)
+        return self.ada_in(x, styles)
+
+
+class ToRGBLayer1(nn.Module):
+    """StyleGAN1 to-RGB: a style-free equalized 1x1 conv (no padding) plus
+    bias, clamped at 256; w is taken and ignored."""
+
+    def __init__(self, in_channels: int, out_channels: int, w_dim: int = 512,
+                 kernel_size: int = 1):
+        super().__init__()
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    init_weights_ = ToRGBLayer.init_weights_
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        x = F.conv2d(x, self.weight.to(x.dtype) * self.weight_gain)
+        return torch.clamp(x + self.bias.to(x.dtype)[:, None, None], -256,
+                           256)
+
+
+def _layer_family(synthesis_layer: str):
+    """(synthesis layer, to-RGB layer) classes of ``synthesis_layer``."""
+    if synthesis_layer not in _SYNTHESIS_LAYERS:
+        raise ValueError(f"synthesis_layer {synthesis_layer!r}: "
+                         f"{'|'.join(_SYNTHESIS_LAYERS)}")
+    if synthesis_layer == "stylegan2":
+        return SynthesisLayer, ToRGBLayer
+    return SynthesisLayer1, ToRGBLayer1
+
+
 class SynthesisPrologue(nn.Module):
     """Learned const input -> conv1 -> torgb."""
 
     def __init__(self, out_channels: int, w_dim: int, resolution: int,
-                 img_channels: int):
+                 img_channels: int, synthesis_layer: str = "stylegan2"):
         super().__init__()
+        layer, torgb = _layer_family(synthesis_layer)
         self.const = nn.Parameter(torch.zeros(out_channels, resolution,
                                               resolution))
-        self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim,
-                                    resolution)
-        self.torgb = ToRGBLayer(out_channels, img_channels, w_dim)
+        self.conv1 = layer(out_channels, out_channels, w_dim, resolution)
+        self.torgb = torgb(out_channels, img_channels, w_dim)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator):
@@ -228,13 +369,14 @@ class SynthesisBlock(nn.Module):
     summed."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
-                 resolution: int, img_channels: int):
+                 resolution: int, img_channels: int,
+                 synthesis_layer: str = "stylegan2"):
         super().__init__()
-        self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim,
-                                    resolution, up=True)
-        self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim,
-                                    resolution)
-        self.torgb = ToRGBLayer(out_channels, img_channels, w_dim)
+        layer, torgb = _layer_family(synthesis_layer)
+        self.conv0 = layer(in_channels, out_channels, w_dim, resolution,
+                           up=True)
+        self.conv1 = layer(out_channels, out_channels, w_dim, resolution)
+        self.torgb = torgb(out_channels, img_channels, w_dim)
 
     def forward(self, x, img, ws, noise_mode="random", generator=None,
                 noises=None):
@@ -254,15 +396,17 @@ class SynthesisNetwork(nn.Module):
     [2n+1 : 2n+4] for block n."""
 
     def __init__(self, w_dim: int, img_resolution: int, img_channels: int,
-                 channel_base: int = 16384, channel_max: int = 512):
+                 channel_base: int = 16384, channel_max: int = 512,
+                 synthesis_layer: str = "stylegan2"):
         super().__init__()
         res = [2 ** i for i in range(2, int(math.log2(img_resolution)) + 1)]
         self.num_ws = 2 * (len(res) + 1)
         chans = channels_for(res, channel_base, channel_max)
         self.first_block = SynthesisPrologue(chans[res[0]], w_dim, res[0],
-                                             img_channels)
+                                             img_channels, synthesis_layer)
         self.blocks = nn.ModuleList(
-            SynthesisBlock(chans[r // 2], chans[r], w_dim, r, img_channels)
+            SynthesisBlock(chans[r // 2], chans[r], w_dim, r, img_channels,
+                           synthesis_layer)
             for r in res[1:])
 
     def noise_shapes(self, batch: int):
@@ -290,14 +434,17 @@ class SynthesisNetwork(nn.Module):
 
 class Generator(nn.Module):
     """Mapping + synthesis. ``forward`` takes z, or w when
-    ``input_is_latent``, and returns the NCHW image."""
+    ``input_is_latent``, and returns the NCHW image. ``synthesis_layer``
+    picks the StyleGAN2 ("stylegan2") or StyleGAN1 ("stylegan1") layer
+    family."""
 
     def __init__(self, z_dim: int = 512, w_dim: int = 512,
                  w_num_layers: int = 8, img_resolution: int = 256,
-                 img_channels: int = 3):
+                 img_channels: int = 3, synthesis_layer: str = "stylegan2"):
         super().__init__()
         self.z_dim = z_dim
-        self.synthesis = SynthesisNetwork(w_dim, img_resolution, img_channels)
+        self.synthesis = SynthesisNetwork(w_dim, img_resolution, img_channels,
+                                          synthesis_layer=synthesis_layer)
         self.num_ws = self.synthesis.num_ws
         self.mapping = MappingNetwork(z_dim, w_dim, num_ws=self.num_ws,
                                       num_layers=w_num_layers)

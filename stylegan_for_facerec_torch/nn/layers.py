@@ -1,7 +1,8 @@
 """Layers that torch does not have as such: the IR block's strided
 shortcut, a dropout that draws from an explicit generator, a Flatten that
-knows the map it flattens, and BatchNorm with per-group ("ghost")
-statistics."""
+knows the map it flattens, BatchNorm with per-group ("ghost")
+statistics, and the StyleGAN1 AdaIN's instance norm written out as the
+JAX package computes it."""
 
 from __future__ import annotations
 
@@ -85,3 +86,18 @@ class BatchNorm2d(_GhostBatchNorm, nn.BatchNorm2d):
 
 class BatchNorm1d(_GhostBatchNorm, nn.BatchNorm1d):
     pass
+
+
+class InstanceNorm2d(nn.Module):
+    """torch ``nn.InstanceNorm2d``'s defaults: no affine, no running
+    statistics; each sample's channel normalised over H and W with its
+    biased variance, ``(x - mean) * rsqrt(var + eps)``, in x's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_features, self.eps = num_features, eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps)

@@ -17,6 +17,10 @@ tensor that the plain versions make and pad.
 The op is linear, so the adjoint's own backward is the forward again:
 ``_SmoothUpsampleGrad.backward`` calls B2, and the pair is differentiable
 to any order.
+
+``smooth_downsample`` (replication pad (2, 1), the same FIR, keep every
+second sample) has no kernel of its own, as in the JAX package, where it
+is XLA: it is plain PyTorch on ``upfirdn2d``'s depthwise passes.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .upfirdn2d import make_resample_kernel, upfirdn2d
 
 _K1D = (1.0 / 8, 3.0 / 8, 3.0 / 8, 1.0 / 8)
+_K4 = make_resample_kernel((1.0, 3.0, 3.0, 1.0))
 
 
 def _taps(x: torch.Tensor):
@@ -304,3 +310,11 @@ def smooth_upsample(x: torch.Tensor) -> torch.Tensor:
 
 smooth_upsample.launches = 0
 smooth_upsample_grad.launches = 0
+
+
+def smooth_downsample(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, ceil(H / 2), ceil(W / 2)): replication pad
+    (2, 1) on both axes, the normalized 4x4 binomial FIR, every second
+    sample kept (from the first)."""
+    xp = F.pad(x, (2, 1, 2, 1), mode="replicate")
+    return upfirdn2d(xp, _K4, down=2)

@@ -3,22 +3,26 @@
     python -m stylegan_for_facerec_torch.tools.train_stage1 \\
         --data_root faces/ --exp_dir runs/s1 \\
         [--config configs/stage1_stylegan2_ada.json] [--max_steps N] \\
-        [--fid_interval N --fid_n 256 --fid_encoder stage3.pt] \\
+        [--fid_interval N --fid_n 256 --fid_encoder stage3.pt |
+         --fid_inception pt_inception.pth] \\
         [--device cuda|cpu] [--resume]
 
 The flags of the JAX package's ``tools/train_stage1.py`` plus ``--device``
-(the GPU unless ``--device cpu``; raises when no GPU is found);
-``--fid_inception`` is not ported (no InceptionV3 in this package); the
-configuration's ``compute_dtype`` picks f32 or bf16 compute. Images come from ``data/images_dataset.py::
-InferenceDataset`` at the configured size. Every 2000 steps, on
-SIGTERM/SIGINT (after the step in flight; the handlers are restored) and
+(the GPU unless ``--device cpu``; raises when no GPU is found); the
+configuration's ``compute_dtype`` picks f32 or bf16 compute. Images come
+from ``data/images_dataset.py::InferenceDataset`` at the configured size.
+Every 2000 steps, on SIGTERM/SIGINT (after the step in flight; the handlers are restored) and
 at the end, the full trainer state goes to ``exp_dir/step_*.pt``
 (``Stage1Trainer.state_dict``); ``--resume`` continues from the newest
 one, and ``tools/train_stage2.py --stylegan_weights exp_dir`` takes its
 ``g_ema``. ``--fid_interval`` reports FID between g_ema samples and reals
 in the feature space of an IR-SE-50 at 112 px: the backbone of a stage-3
 checkpoint of this package (``--fid_encoder``), or seeded random weights,
-which track progress within one run only.
+which track progress within one run only. ``--fid_inception`` takes the
+InceptionV3 pool3 features (the FID of the published numbers) instead: a
+file of this package's ``InceptionV3`` state_dict, or a torchvision /
+pytorch-fid state_dict (its ``fc.`` and ``AuxLogits.`` keys dropped). A
+JAX checkpoint directory is not read.
 """
 
 from __future__ import annotations
@@ -52,6 +56,11 @@ def _parse(argv):
                     help="stage-3 checkpoint of this package whose backbone "
                     "is an IR-SE-50 at 112 (default: seeded random "
                     "weights, for progress within one run only)")
+    ap.add_argument("--fid_inception", default=None,
+                    help="InceptionV3 weights for real-Inception FID: a "
+                    "state_dict file of this package's InceptionV3 or a "
+                    "torchvision/pytorch-fid state_dict (replaces the "
+                    "IR-SE-50 feature space)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -60,21 +69,29 @@ def _fid_fn(args, trainer, ds, device):
     """``compute_fid(step) -> float``: ``fid_n`` reals against ``fid_n``
     g_ema samples (z and noise from seeded generators)."""
     from ..eval.fid import embedding_fid
+    from ..models.inception import InceptionV3
     from ..models.irse import IR_SE_50
     from ..nn.initializers import init_weights
     from ..ops.image import resize_bilinear
-    from ..utils.checkpoint import load_backbone
+    from ..utils.checkpoint import load_backbone, load_inception
 
     if args.fid_n < 2:
         raise SystemExit("--fid_n must be >= 2 (a covariance needs two "
                          "samples a side)")
-    enc = IR_SE_50(112)
-    if args.fid_encoder:
-        load_backbone(args.fid_encoder, enc)
+    if args.fid_inception:
+        enc = InceptionV3()
+        load_inception(args.fid_inception, enc)
+        print(f"[fid] InceptionV3 pool3 features ({args.fid_inception})")
+        size = None                        # the network resizes to 299
     else:
-        print("[fid] no --fid_encoder: seeded random IR-SE-50 features; "
-              "the metric tracks progress within this run only")
-        init_weights(enc, torch.Generator().manual_seed(11))
+        enc, size = IR_SE_50(112), 112
+        if args.fid_encoder:
+            load_backbone(args.fid_encoder, enc)
+        else:
+            print("[fid] no --fid_encoder/--fid_inception: seeded random "
+                  "IR-SE-50 features; the metric tracks progress within "
+                  "this run only")
+            init_weights(enc, torch.Generator().manual_seed(11))
     enc = enc.to(device).eval()
     bs = min(32, args.fid_n)
     n = (args.fid_n // bs) * bs
@@ -82,7 +99,8 @@ def _fid_fn(args, trainer, ds, device):
     @torch.no_grad()
     def embed(images):                                  # NHWC
         x = torch.as_tensor(images, device=device).permute(0, 3, 1, 2)
-        return enc(resize_bilinear(x.float(), 112, 112))
+        x = x.float()
+        return enc(x if size is None else resize_bilinear(x, size, size))
 
     def compute_fid(step):
         rng = np.random.default_rng(step)

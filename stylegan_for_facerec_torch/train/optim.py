@@ -28,6 +28,12 @@ ranger`` (``optax.scale_by_radam`` inside):
     way to p + u and p is set to them, else p += u. The slow weights are
     optimizer state, taken from p at the first step.
 
+``RAdam`` (``radam_torch``) is the same RAdam step without centralisation
+or Lookahead, then optax's ``add_decayed_weights`` (update += wd p) and the
+learning rate: ``optax.chain(scale_by_radam, add_decayed_weights,
+scale_by_learning_rate)``. ``torch.optim.RAdam`` differs from it (its
+unrectified branch, its threshold and its weight decay).
+
 rho_t sits near the threshold at t = 5 and 6, where one f32 rounding of
 b2^t moves r_t by about 1 %. The step constants (b^t, the bias
 corrections, rho_t, r_t) are therefore computed on the host in float32 the
@@ -196,3 +202,54 @@ class Ranger(torch.optim.Optimizer):
                     u = slow - p
                 p.add_(u)
         return loss
+
+
+class RAdam(torch.optim.Optimizer):
+    """optax's RAdam (``scale_by_radam``, rectification threshold 5), then
+    decoupled weight decay (``update += weight_decay * p``), then
+    ``p -= lr * update``. Parameters whose ``grad`` is None are skipped."""
+
+    def __init__(self, params: Iterable, lr: float, betas=(0.95, 0.999),
+                 eps: float = 1e-5, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                m, v = st["exp_avg"], st["exp_avg_sq"]
+                m.mul_(b1).add_(g, alpha=1.0 - b1)
+                v.mul_(b2).add_(g * g, alpha=1.0 - b2)
+                bc1, bc2, r = radam_constants(st["step"], b1, b2)
+                u = m / bc1
+                if r is not None:
+                    u = (r * u) / (torch.sqrt(v / bc2) + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(u * -group["lr"])
+        return loss
+
+
+def radam_torch(params: Iterable, learning_rate: float, b1: float = 0.95,
+                b2: float = 0.999, eps: float = 1e-5,
+                weight_decay: float = 0.0) -> RAdam:
+    """RAdam with the reference Ranger's defaults (betas (0.95, 0.999),
+    eps 1e-5), as ``stylegan_for_facerec_tpu/train/optim.py::
+    radam_torch``."""
+    return RAdam(params, lr=learning_rate, betas=(b1, b2), eps=eps,
+                 weight_decay=weight_decay)

@@ -22,6 +22,10 @@
   * ``load_stage2_encoder``: the stage-2 -> stage-3 handoff, a stage-2
     ``PSp`` state_dict's ``encoder.input_layer`` and ``encoder.body`` into
     a ``PSpFaceRec``; ``load_backbone``: a stage-3 file's backbone.
+  * ``load_state_dict_file``: a ``torch.save``d state_dict, bare or under
+    ``state_dict`` (the ``save_checkpoint`` layout), into any module;
+    ``load_inception`` reads a torchvision or pytorch-fid InceptionV3
+    file that way, its ``fc.`` and ``AuxLogits.`` keys dropped.
 """
 
 from __future__ import annotations
@@ -112,6 +116,25 @@ def load_backbone(path: str, backbone: nn.Module) -> None:
     """Load a stage-3 checkpoint's backbone strictly into ``backbone``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     backbone.load_state_dict(ckpt["backbone"], strict=True)
+
+
+def load_state_dict_file(path: str, module: nn.Module,
+                         drop_prefixes=()) -> None:
+    """Load a ``torch.save``d state_dict (bare, or under ``state_dict``)
+    strictly into ``module``, without its keys under ``drop_prefixes``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    module.load_state_dict({k: v for k, v in sd.items()
+                            if not k.startswith(tuple(drop_prefixes))},
+                           strict=True)
+
+
+def load_inception(path: str, model: nn.Module) -> None:
+    """An ``InceptionV3`` from a file of this package (its state_dict, bare
+    or under ``state_dict``) or a torchvision / pytorch-fid state_dict,
+    whose classifier heads (``fc.``, ``AuxLogits.``) the feature extractor
+    does not own."""
+    load_state_dict_file(path, model, ("fc.", "AuxLogits."))
 
 
 def load_metadata(path: str) -> Dict:

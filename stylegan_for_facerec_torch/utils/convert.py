@@ -16,7 +16,15 @@ rules are those of the reference torch export:
     (C, H, W);
   * ``FullyConnectedLayer`` / ``EqualLinear``: (out, in) kept;
   * a discriminator ``ConvLayer``'s activation bias (``FusedLeakyReLU``)
-    at its child ``1`` or, after a blur, ``2``;
+    at its child ``1`` or, after a blur, ``2``, and a ``StyledConv``'s
+    at ``activate``;
+  * the rosinality generator: ``ModulatedConv2d.weight`` HWIO ->
+    (1, O, I, k, k), ``ToRGB.bias`` (3,) -> (1, 3, 1, 1), ``input.input``
+    (1, 4, 4, C) -> (1, C, 4, 4), the state's ``noises.noise_{i}``
+    (1, r, r, 1) -> (1, 1, r, r), ``NoiseInjection.weight`` as it is;
+  * the StyleGAN1 layers (``SynthesisLayer1`` as ``SynthesisLayer``,
+    ``ToRGBLayer1`` without an affine) and ``EqualizedConv2d``: HWIO ->
+    OIHW;
   * ``SynthesisPrologue.const``: HWC -> CHW;
   * BatchNorm2d and BatchNorm1d ``mean``/``var`` state ->
     ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``);
@@ -26,9 +34,10 @@ rules are those of the reference torch export:
   * the margin heads of ``models.heads``: their parameters and buffers
     under the JAX names, unchanged (a class weight stays (C, D)).
 
-A stage-3 backbone thus loads whole (``PSpFaceRec``, ``Backbone``), and
-``load_stage3_from_jax`` fills a ``Stage3Trainer`` from the JAX trainer's
-trees; ``load_stage1_from_jax`` fills a ``Stage1Trainer`` from the JAX
+``InceptionV3`` is made of ``nn.Conv2d`` and BatchNorm (eps 1e-3) under
+torchvision's names. A stage-3 backbone thus loads whole (``PSpFaceRec``,
+``Backbone``), and ``load_stage3_from_jax`` fills a ``Stage3Trainer``
+from the JAX trainer's trees; ``load_stage1_from_jax`` fills a ``Stage1Trainer`` from the JAX
 stage-1 train state; ``load_e4e_from_jax`` fills an ``E4eCoach`` from the
 JAX e4e coach's (params, state, d_params). The pSp encoder family
 (``GradualStyleEncoder``, ``ResNetBackboneEncoder``, the "pSp" and "both"
@@ -47,11 +56,14 @@ from torch import nn
 
 from ..models import heads
 from ..models.psp import PSp, PSpFaceRec
-from ..models.stylegan2 import EqualConv2d, EqualLinear, FusedLeakyReLU
+from ..models.stylegan2 import (ConstantInput, EqualConv2d, EqualLinear,
+                                FusedLeakyReLU, ModulatedConv2d,
+                                NoiseInjection, ToRGB, _Noises)
 from ..nn.layers import Flatten
-from ..models.stylegan2_ada import (FullyConnectedLayer, MappingNetwork,
-                                    SynthesisLayer, SynthesisPrologue,
-                                    ToRGBLayer)
+from ..models.stylegan2_ada import (EqualizedConv2d, FullyConnectedLayer,
+                                    MappingNetwork, SynthesisLayer,
+                                    SynthesisLayer1, SynthesisPrologue,
+                                    ToRGBLayer, ToRGBLayer1)
 
 
 def _subtree(tree: Mapping, path: str):
@@ -130,18 +142,27 @@ def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping,
         if mod.bias is not None:
             out["bias"] = p["bias"]
         return out
-    if isinstance(mod, EqualConv2d):
+    if isinstance(mod, (EqualConv2d, EqualizedConv2d)):
         out = {"weight": _oihw(p["weight"])}
         if mod.bias is not None:
             out["bias"] = p["bias"]
         return out
-    if isinstance(mod, FusedLeakyReLU):
-        return {"bias": p["bias"]}
-    if isinstance(mod, SynthesisLayer):
+    if isinstance(mod, (FusedLeakyReLU, NoiseInjection)):
+        return dict(p)
+    if isinstance(mod, ModulatedConv2d):
+        return {"weight": _oihw(p["weight"])[None]}
+    if isinstance(mod, ToRGB):
+        return {"bias": np.asarray(p["bias"]).reshape(1, 3, 1, 1)}
+    if isinstance(mod, ConstantInput):
+        return {"input": np.transpose(np.asarray(p["input"]), (0, 3, 1, 2))}
+    if isinstance(mod, _Noises):
+        return {k: np.transpose(np.asarray(v), (0, 3, 1, 2))
+                for k, v in s.items()}
+    if isinstance(mod, (SynthesisLayer, SynthesisLayer1)):
         return {"weight": _oihw(p["weight"]), "bias": p["bias"],
                 "noise_strength": p["noise_strength"],
                 "noise_const": s["noise_const"]}
-    if isinstance(mod, ToRGBLayer):
+    if isinstance(mod, (ToRGBLayer, ToRGBLayer1)):
         return {"weight": _oihw(p["weight"]), "bias": p["bias"]}
     if isinstance(mod, SynthesisPrologue):
         return {"const": np.transpose(np.asarray(p["const"]), (2, 0, 1))}

@@ -1,11 +1,13 @@
 """Training logs: ``AverageMeter``, ``aggregate_loss_dicts``,
 ``MetricLogger`` (scalars as JSON lines, per-benchmark verification
-results, image grids as PNG) and ``StepTimer``, as
-``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb backend,
-ROC plot and profiler trace."""
+results, image grids as PNG), ``profile_trace`` (a ``torch.profiler``
+Chrome trace) and ``StepTimer``, as
+``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb backend
+and ROC plot."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -95,6 +97,31 @@ class MetricLogger:
         if self._file:
             self._file.close()
             self._file = None
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True, device: str = "cuda"):
+    """Profile the block and write a Chrome trace (``trace_<pid>_<ns>.json``,
+    for Perfetto or chrome://tracing) into ``log_dir``: CPU activity, and
+    the card's kernels when ``device`` is a CUDA device. With
+    ``enabled=False`` it does nothing. Yields the profiler (None when
+    disabled)."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 class StepTimer:
