@@ -154,10 +154,44 @@ Phases, each fatal on failure (nonzero exit, no result line):
      (l2, lpips, id; seeded weights) and their identity folder through
      extract_features_from_folder (a seeded IR-SE-50) on the card and on
      the CPU: the same numbers within phase 14's tolerance, no launch.
+ 28. stage 3 with the stage-3 CLI's other backbones (build_backbone) on
+     phase 11's recipe: ResNet_50 (its dropout 0.5) and MobileFaceNet, 2
+     "frozen" (they have no body: everything trains, as in the JAX
+     package) and 2 unfrozen f32 batch-8 steps from packed shards; a first
+     step against the CPU at batch 8 (the loss within 1e-3; each update
+     within phase 12's tolerance of the CPU's, or of a float64 CPU step's
+     or within 4x of the CPU f32 step's distance from it, since a ReLU or
+     PReLU input within rounding of 0 takes the other branch on one
+     device); train images/s and peak GiB at bf16 batch 256 and f32 batch
+     100, stage3_train_mfu and a profile of the bf16 batch-256 step with
+     the BatchNorm, depthwise, layout and elementwise shares; remat on and
+     off for the recipe's PSpFaceRec at bf16 batch 256: the first step's
+     loss, ms a step, peak GiB;
+ 29. the backbone zoo at full width (ResNet_101, AttentionNet_56,
+     EfficientNetB0, GhostNet, gac_resnet50 with adaptive convs and
+     attention), seeded weights and BatchNorm statistics, eval mode: card
+     vs CPU as phase 24 (batch 2; GAC batch 4, its labels covering the
+     four groups), bf16 batch-256 forward images/s;
+ 30. the seven extra heads at 512 x 28 000, batch 256, forward and
+     backward: logits and the feature and class-weight gradients card vs
+     CPU, ms; SSTPrototype (queue 16 384) over 3 steps with the same coins
+     on both devices: logits, queue, cursor and labels;
+ 31. RB-WebFace: the test_rb_webface CLI on the card over a synthetic
+     partition (4 groups of 100 identities x 5 PNGs and 1 000 negatives)
+     with phase 28's ResNet_50, its counts against the same embeddings
+     counted on the CPU (a difference only for pairs within 1e-5 of a
+     threshold); the impostor sweep alone over 20 000 and 100 000 seeded
+     unit embeddings (512-d): ms and peak GiB, no (T, chunk, M) tensor;
+ 32. the stage-3 CLI on the card from a reference-layout torch .pt (a
+     seeded PSpFaceRec's encoder.* state_dict under the reference names):
+     the input layer and body loaded bit for bit, 2 steps, the frozen
+     body unchanged.
+Phases 28-32 launch none of B1, B1b, B2 or B2b.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
 as nvidia-smi reports them, and the ones before that the stage-1, stage-3,
-e4e and phase 24-27 ("generators_fid_eval") numbers as JSON. Exits
+e4e, phase 24-27 ("generators_fid_eval") and phase 28-32 ("stage3_zoo")
+numbers as JSON. Exits
 nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
@@ -180,6 +214,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+from concurrent.futures import ThreadPoolExecutor
 import dataclasses
 import json
 import math
@@ -211,12 +246,16 @@ from stylegan_for_facerec_torch.eval.fid import embedding_fid
 from stylegan_for_facerec_torch.eval.inference import \
     extract_features_from_folder
 from stylegan_for_facerec_torch.models import GeneratorRosinality, InceptionV3
+from stylegan_for_facerec_torch.models import (attention, efficientnet, gac,
+                                               ghostnet, heads_extra, resnet)
+from stylegan_for_facerec_torch.eval import rb_webface
 from stylegan_for_facerec_torch.models.irse import IR_SE_50
 from stylegan_for_facerec_torch.models.stylegan2 import (
     EqualLinear, NoiseInjection, rosinality_channels)
 from stylegan_for_facerec_torch.models.stylegan2_ada import (
     EqualizedConv2d, FullyConnectedLayer, Generator, channels_for)
-from stylegan_for_facerec_torch.tools import calc_losses_on_images
+from stylegan_for_facerec_torch.tools import (calc_losses_on_images,
+                                              test_rb_webface, train_stage3)
 from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build, resample
 from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
@@ -324,6 +363,27 @@ ROUNDOFF_FACTOR = 4.0
 BF16_REL_TOL = 16 * 2.0 ** -8
 FID_N, FID_BATCH, FID_CPU = 256, 64, 8
 EVAL_PAIRS = 32
+# stage 3 with the zoo (phases 28-32): the stage-3 CLI's other backbones on
+# the recipe and their rates; the device-time kinds read from their
+# profiles; the zoo's models and their rate batch; the extra heads' batch
+# and SSTPrototype's queue; the RB-WebFace partition (groups, identities x
+# images, negatives a group), the impostor sweeps' sizes and the distance
+# from a threshold within which card and CPU counts may differ
+ZOO_S3_BACKBONES = ("ResNet_50", "MobileFaceNet")
+ZOO_S3_RATES = (("bf16", "bfloat16", 256), ("f32", "float32", 100))
+PROFILE_KINDS = {"batchnorm": ("batch_norm", "bn_fw", "bn_bw"),
+                 # cuDNN's depthwise kernels: one channel per group
+                 "depthwise": ("depthwise", "c1_k1"),
+                 "layout": ("nchwToNhwc", "nhwcToNchw"),
+                 "elementwise": ("elementwise_kernel",)}
+ZOO_MODELS = ("ResNet_101", "AttentionNet_56", "EfficientNetB0", "GhostNet",
+              "gac_resnet50")
+ZOO_RATE_BATCH = 256
+HEAD_BATCH, SST_QUEUE, SST_STEPS = 256, 16384, 3
+RBW_GROUPS, RBW_IDS, RBW_POS, RBW_NEG = 4, 100, 5, 1000
+RBW_SWEEPS = (20000, 100000)
+RBW_NEAR = 1e-5
+RBW_NOISE = 3.0
 
 
 def fail(msg: str):
@@ -901,13 +961,14 @@ def inversion_rate(model, batch: int, dtype) -> float:
 
 
 def profile_breakdown(label: str, fn, top: int = 12,
-                      details: dict = None) -> dict:
+                      details: dict = None, kinds: dict = None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's wall time. Returns B1's and
     B2's device ms and launches in that call; ``details``, when given, is
-    filled with the device and wall ms and the top kernels. Fails when the
-    profiler records no device time: the launch checks and the numbers
-    read from the profile would be missing."""
+    filled with the device and wall ms and the top kernels, and with
+    ``kinds`` ({kind: name substrings}) each kind's share of the device
+    time. Fails when the profiler records no device time: the launch
+    checks and the numbers read from the profile would be missing."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                              # warm-up
     torch.cuda.synchronize()
@@ -937,6 +998,13 @@ def profile_breakdown(label: str, fn, top: int = 12,
         details.update(device_ms=dev_ms, wall_ms=wall_ms, top=[
             [e.key[:90], e.self_device_time_total / 1e3, e.count]
             for e in tops])
+    if kinds:
+        shares = {kind: sum(e.self_device_time_total for e in kern if any(
+            sub.lower() in e.key.lower() for sub in subs)) / 1e3 / dev_ms
+            for kind, subs in kinds.items()}
+        log("  shares: " + ", ".join(f"{k} {v:.1%}"
+                                     for k, v in shares.items()))
+        details["shares"] = shares
     for e in spans:
         log(f"  annotated span {e.key}: {e.device_time_total / 1e3:.2f} ms "
             f"of device time inside it")
@@ -1132,15 +1200,18 @@ def train_rate(coach, avg, batch: int, compute_dtype: str) -> dict:
 # -- stage 3 -----------------------------------------------------------------
 
 def stage3_trainer(device: str, compute_dtype: str = "float32",
-                   dropout: bool = True, augment: bool = True
+                   dropout: bool = True, augment: bool = True,
+                   backbone: str = "pSp", remat: bool = False
                    ) -> Stage3Trainer:
     """The stage-3 recipe of ``STAGE3_CONFIG`` at full width over
-    ``S3_CLASSES`` classes, weights drawn from seed 0 (on the CPU, so every
+    ``S3_CLASSES`` classes, with the backbone the stage-3 CLI builds for
+    ``backbone`` (the recipe's ``pSp``: ``PSpFaceRec`` IR-SE-50 with its
+    block dropout), weights drawn from seed 0 (on the CPU, so every
     device gets the same). ``dropout=False`` sets every dropout to p = 0;
     ``augment`` crops 112 px out of larger inputs and flips them."""
-    opts = load_config(Stage3Options, STAGE3_CONFIG)
-    backbone = PSpFaceRec(size=opts.input_size[0], emb_size=opts.emb_size,
-                          block_dropout=opts.dropout or None)
+    opts = dataclasses.replace(load_config(Stage3Options, STAGE3_CONFIG),
+                               backbone=backbone)
+    backbone = train_stage3.build_backbone(opts)
     cfg = Stage3Config(
         emb_size=opts.emb_size, num_classes=S3_CLASSES, head=opts.head,
         loss=opts.loss, arcface_s=opts.arcface_s, margin=opts.margin,
@@ -1148,7 +1219,7 @@ def stage3_trainer(device: str, compute_dtype: str = "float32",
         batch_size=opts.batch_size, num_epochs=opts.num_epochs,
         stages=tuple(opts.stages),
         freeze_backbone_epochs=opts.freeze_backbone_epochs,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, remat=remat,
         augment_crop=opts.input_size[0] if augment else None)
     trainer = Stage3Trainer(backbone, cfg, steps_per_epoch=1000,
                             device=device, seed=0)
@@ -2313,7 +2384,8 @@ def forward_backward(label: str, model, run, inputs, want_fwd: dict,
     return {k: fwd[k] + bwd[k] for k in KERNELS}
 
 
-def card_vs_cpu(label: str, model, run, inputs) -> dict:
+def card_vs_cpu(label: str, model, run, inputs,
+                f64_on_miss: bool = False) -> dict:
     """``run`` at CPU_BATCH on the card, on a CPU copy of ``model`` and on
     a float64 CPU copy: the card's output within CPU_REL_TOL of the CPU's
     scale; after the backward of a seeded random weighting of the output
@@ -2323,12 +2395,38 @@ def card_vs_cpu(label: str, model, run, inputs) -> dict:
     or no further from it than ROUNDOFF_FACTOR times the CPU's f32 run.
     A scalar noise weight's gradient is a sum of up to a million products
     that cancel to 1e-4 of their absolute sum, so f32 round-off alone can
-    move it by 10 % on either device (PERF.md, PR 8)."""
+    move it by 10 % on either device (PERF.md, PR 8). With
+    ``f64_on_miss`` the float64 run is made only when a card gradient is
+    past phase 8's tolerance of the CPU's f32 one."""
     cpu = copy.deepcopy(model).cpu()
     ref = copy.deepcopy(model).cpu().double()
     outs = {}
     t0 = time.perf_counter()
-    for m, dev in ((model, "cuda"), (cpu, "cpu"), (ref, "f64")):
+    runs = [(model, "cuda"), (cpu, "cpu"), (ref, "f64")]
+    if f64_on_miss:
+        for m, dev in runs[:2]:
+            m.zero_grad(set_to_none=True)
+            y = run(m, to_device(inputs, dev))
+            wt = torch.randn(y.shape, generator=torch.Generator(
+            ).manual_seed(77)).to(y.device, y.dtype)
+            (y * wt).sum().backward()
+            outs[dev] = y.detach().float().cpu()
+        ratios = [grad_ratio(pc.grad.detach().cpu().double(),
+                             pu.grad.double())
+                  for pc, pu in zip(model.parameters(), cpu.parameters())
+                  if pc.grad is not None and pu.grad is not None]
+        if max(ratios) <= 1.0:
+            err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+            scale = outs["cpu"].abs().max().item()
+            if not err <= CPU_REL_TOL * scale:
+                fail(f"{label}: card and CPU outputs differ by {err:.3e} "
+                     f"(scale {scale:.3e})")
+            model.zero_grad(set_to_none=True)
+            return {"output_rel_err": err / scale,
+                    "worst_grad_ratio_vs_cpu_f32": max(ratios),
+                    "seconds": time.perf_counter() - t0}
+        runs = runs[2:]
+    for m, dev in runs:
         m.zero_grad(set_to_none=True)
         x = to_device(inputs, "cpu" if dev == "f64" else dev)
         if dev == "f64":
@@ -2347,6 +2445,12 @@ def card_vs_cpu(label: str, model, run, inputs) -> dict:
            "cpu_f32_worst_grad_ratio": 0.0, "past_tolerance_as_cpu": []}
     for (k, pc), pu, pr in zip(model.named_parameters(), cpu.parameters(),
                                ref.parameters()):
+        grads = [p.grad is None for p in (pc, pu, pr)]
+        if all(grads):           # a parameter the forward does not use
+            res["unused_parameters"] = res.get("unused_parameters", 0) + 1
+            continue
+        if any(grads):
+            fail(f"{label}: gradient {k} missing on one device")
         rc = grad_ratio(pc.grad.detach().cpu().double(), pr.grad)
         ru = grad_ratio(pu.grad.double(), pr.grad)
         if rc > max(1.0, ROUNDOFF_FACTOR * ru):
@@ -2729,6 +2833,664 @@ def phase_eval_tools() -> dict:
     return out
 
 
+# -- stage 3 with the zoo (phases 28-32) -------------------------------------
+
+def zoo_step_vs_cpu(name: str) -> dict:
+    """Phase 28b: one first step of fresh ``name`` trainers (seed 0, dropout
+    off, no crop) on the card and on the CPU at batch S3_BATCH, uint8
+    inputs: the loss within CPU_REL_TOL; each update within phase 12's
+    tolerance of the CPU's or, where a ReLU or PReLU input within rounding
+    of 0 takes the other branch on one device (a train-mode BatchNorm at
+    batch 8 makes such steps chaotic), within it of a float64 CPU step's
+    or no further from that than ROUNDOFF_FACTOR times the CPU's f32 step;
+    BatchNorm running statistics 1e-4 of scale."""
+    card = stage3_trainer("cuda", dropout=False, augment=False,
+                          backbone=name)
+    cpu = stage3_trainer("cpu", dropout=False, augment=False, backbone=name)
+    x, y = stage3_inputs(S3_BATCH, seed=21, size=112)
+    before = {k: v.clone() for k, v in cpu.backbone.state_dict().items()}
+    before["head.weight"] = cpu.head_weight.detach().clone()
+    reset_launches()
+    loss = card.train_step(x.cuda(), y.cuda(), 0)["loss"].item()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    t0 = time.perf_counter()
+    c_loss = cpu.train_step(x, y, 0)["loss"].item()
+    dt = time.perf_counter() - t0
+
+    def state(t):
+        out = {k: v.detach().cpu().double() for k, v in
+               t.backbone.state_dict().items()}
+        out["head.weight"] = t.head_weight.detach().cpu().double()
+        return out
+
+    got, want = state(card), state(cpu)
+    before = {k: v.double() for k, v in before.items()}
+    del card
+    lrel = abs(loss - c_loss) / abs(c_loss)
+    if not lrel <= CPU_REL_TOL:
+        fail(f"phase 28 {name}: loss card {loss} vs CPU {c_loss}")
+    params = [k for k, _ in cpu.backbone.named_parameters()] + ["head.weight"]
+
+    def ratios(a, b):
+        """|update a - update b| over phase 12's tolerance (from b)."""
+        gmax = max((b[k] - before[k]).abs().max().item() for k in params)
+        out = {}
+        for k in params:
+            ub = b[k] - before[k]
+            tol = (CPU_UPDATE_TOL * ub.abs().max().item() + 1e-6 * gmax
+                   + 4 * torch.finfo(torch.float32).eps * b[k].abs())
+            out[k] = (((a[k] - before[k]) - ub).abs() / tol).max().item()
+        return out
+
+    direct = ratios(got, want)
+    past = sorted(k for k, r in direct.items() if r > 1.0)
+    res = {"loss_rel": lrel, "launches": launches, "cpu_step_s": dt,
+           "worst_update_ratio": max(direct.values()),
+           "worst_update_tensor": max(direct, key=direct.get),
+           "past_tolerance": len(past)}
+    if past:
+        ref = stage3_trainer("cpu", dropout=False, augment=False,
+                             backbone=name)
+        ref.backbone.double()
+        ref.head_weight.data = ref.head_weight.data.double()
+        ref.train_step(x.double() / 127.5 - 1.0, y, 0)
+        f64 = state(ref)
+        card64, cpu64 = ratios(got, f64), ratios(want, f64)
+        for k in past:
+            if card64[k] > max(1.0, ROUNDOFF_FACTOR * cpu64[k]):
+                fail(f"phase 28 {name}: update {k} is {direct[k]:.2f}x phase "
+                     f"12's tolerance from the CPU's and {card64[k]:.2f}x "
+                     f"from a float64 step's (the CPU's f32 step "
+                     f"{cpu64[k]:.2f}x)")
+        res["past_tolerance_vs_f64"] = [[k, direct[k], card64[k], cpu64[k]]
+                                        for k in past]
+    bn_err = 0.0
+    for k in want:
+        if not k.endswith("running_mean"):
+            continue
+        kv = k[:-len("mean")] + "var"
+        vmax = want[kv].abs().max().item()
+        err = max((got[k] - want[k]).abs().max().item() / math.sqrt(vmax),
+                  (got[kv] - want[kv]).abs().max().item() / vmax)
+        if err > 1e-4:
+            fail(f"phase 28 {name}: BatchNorm {k} card vs CPU {err:.3e} of "
+                 f"scale")
+        bn_err = max(bn_err, err)
+    res["bn_rel"] = bn_err
+    if any(launches.values()):
+        fail(f"phase 28 {name}: the step launched {launches}")
+    log(f"phase 28: {name} first step card vs CPU at batch {S3_BATCH}: loss "
+        f"{loss:.6f} vs {c_loss:.6f} (rel {lrel:.2e}); worst update "
+        f"{res['worst_update_tensor']} at {res['worst_update_ratio']:.3f} of "
+        f"phase 12's tolerance ({len(past)} past it"
+        + (", each within the float64 rule" if past else "")
+        + f"); BatchNorm statistics {bn_err:.2e} of scale; CPU step "
+        f"{dt:.1f} s")
+    return res
+
+
+def phase_zoo_stage3(name: str) -> dict:
+    """Phase 28: the stage-3 recipe with the CLI's ``name`` backbone:
+    2 "frozen" + 2 unfrozen f32 steps at batch S3_BATCH from packed shards
+    through the prefetch (the backbone has no body, so the frozen epochs
+    train everything, as in the JAX package), the first step against the
+    CPU, train rates at bf16 batch 256 and f32 batch 100, the MFU and a
+    profile of the bf16 batch-256 step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    trainer = stage3_trainer("cuda", backbone=name)
+    bb = trainer.backbone
+    start = {k: v.detach().clone() for k, v in bb.state_dict().items()}
+    head0 = trainer.head_weight.detach().clone()
+    x, y = stage3_inputs(S3_BATCH * S3_STEPS, seed=20)
+    with tempfile.TemporaryDirectory() as shards:
+        write_packed(shards, x.numpy(), y.numpy(),
+                     [str(i) for i in range(S3_CLASSES)], shard_size=16)
+        loader = PackedLoader(PackedTrainDataset(shards), S3_BATCH)
+        reset_launches()
+        losses = []
+        for i, (xb, yb) in enumerate(device_prefetch(iter(loader))):
+            mask = trainer.freeze_mask(i < S3_STEPS // 2)
+            if not all(mask.values()):
+                fail(f"phase 28 {name}: the frozen mask froze "
+                     f"{[k for k, v in mask.items() if not v][:3]}")
+            losses.append(trainer.train_step(xb, yb, i, mask)["loss"].item())
+        torch.cuda.synchronize()
+    launches = read_launches()
+    if len(losses) != S3_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"phase 28 {name}: losses {losses}")
+    end = bb.state_dict()
+    keys = [k for k, _ in bb.named_parameters()]
+    moved = [k for k in keys if not torch.equal(start[k], end[k])]
+    if len(moved) < 0.9 * len(keys) or torch.equal(head0,
+                                                   trainer.head_weight):
+        fail(f"phase 28 {name}: only {len(moved)} of {len(keys)} tensors "
+             f"moved")
+    still = [k for k in end if k.endswith("running_mean")
+             and torch.equal(start[k], end[k])]
+    if still:
+        fail(f"phase 28 {name}: BatchNorm statistics did not move: "
+             f"{still[:5]}")
+    if any(launches.values()):
+        fail(f"phase 28 {name}: the train steps launched {launches}")
+    log(f"phase 28: stage-3 {name}, ArcFace over {S3_CLASSES} classes, f32 "
+        f"batch {S3_BATCH}, {S3_STEPS} steps from packed shards (the first "
+        f"{S3_STEPS // 2} 'frozen': no body, everything trains): losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; {len(moved)} of {len(keys)} tensors moved; launches "
+        f"{launches}")
+    out = {"losses": losses, "launches": launches,
+           "cpu_vs_card": zoo_step_vs_cpu(name), "train": {}}
+    for dname, cdt, batch in ZOO_S3_RATES:
+        r = stage3_rate(trainer, batch, cdt)
+        out["train"][f"{dname}_batch{batch}"] = r
+        log(f"phase 28: {name} train step {dname} batch {batch}: "
+            f"{r['images_per_s']:.1f} images/s, {r['step_ms']:.1f} ms/step, "
+            f"peak {r['peak_gib']:.1f} GiB")
+    b = S3_PROFILE_BATCH
+    trainer.cfg = dataclasses.replace(trainer.cfg, compute_dtype="bfloat16")
+    xb, yb = (t.cuda() for t in stage3_inputs(b, seed=23))
+    with FlopCounterMode(display=False) as fc:
+        trainer.train_step(xb, yb, 0)
+    flops = fc.get_total_flops()
+    step_s = out["train"][f"bf16_batch{b}"]["step_ms"] / 1e3
+    out.update(step_flops=flops,
+               stage3_train_mfu=flops / step_s / BF16_FLOPS_PER_S)
+    log(f"phase 28: {name} stage3_train_mfu {out['stage3_train_mfu']:.4f} "
+        f"({flops / 1e12:.3f} TFLOP a bf16 batch-{b} step, "
+        f"{flops / b / 3e9:.2f} GFLOP an image forward if backward is twice "
+        f"the forward)")
+    details = {}
+    totals = profile_breakdown(
+        f"phase 28: profile of a {name} bf16 batch-{b} stage-3 train step",
+        lambda: trainer.train_step(xb, yb, 0), details=details,
+        kinds=PROFILE_KINDS)
+    if any(n for _, n in totals.values()):
+        fail(f"phase 28 {name}: the profiled step launched {totals}")
+    out[f"profile_bf16_batch{b}"] = details
+    if name == "ResNet_50":
+        out["checkpoint"] = {"backbone": {k: v.cpu() for k, v in
+                                          bb.state_dict().items()}}
+    return out
+
+
+def phase_remat() -> dict:
+    """Phase 28c: ``Stage3Config.remat`` on and off for the recipe's
+    ``PSpFaceRec`` IR-SE-50 at bf16 batch 256: the first step's loss
+    (the same weights and dropout draws), peak GiB and ms a step."""
+    x, y = (t.cuda() for t in stage3_inputs(S3_PROFILE_BATCH, seed=24))
+    out = {}
+    for remat in (False, True):
+        tr = stage3_trainer("cuda", "bfloat16", remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss = tr.train_step(x, y, 0)["loss"].item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3):
+            m = tr.train_step(x, y, i + 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        launches = read_launches()
+        if any(launches.values()) or not math.isfinite(m["loss"].item()):
+            fail(f"phase 28 remat={remat}: launches {launches}, loss "
+                 f"{m['loss'].item()}")
+        out["on" if remat else "off"] = {
+            "first_loss": loss, "step_ms": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del tr, m
+        torch.cuda.empty_cache()
+    on, off = out["on"], out["off"]
+    out["loss_rel"] = abs(on["first_loss"] - off["first_loss"]) / abs(
+        off["first_loss"])
+    if not out["loss_rel"] <= CPU_REL_TOL:
+        fail(f"phase 28: remat changed the step's loss {off['first_loss']} "
+             f"-> {on['first_loss']}")
+    log(f"phase 28: remat off/on, PSpFaceRec IR-SE-50 bf16 batch "
+        f"{S3_PROFILE_BATCH}: loss {off['first_loss']:.6f} / "
+        f"{on['first_loss']:.6f} (rel {out['loss_rel']:.1e}); "
+        f"{off['step_ms']:.1f} / {on['step_ms']:.1f} ms a step; peak "
+        f"{off['peak_gib']:.2f} / {on['peak_gib']:.2f} GiB")
+    return out
+
+
+def zoo_model(name: str):
+    """Phase 29's ``name`` at full width from seed 0, seeded BatchNorm
+    statistics (and GAC attention gates), eval mode, on the card; its
+    inputs at ``batch`` (GAC: the 6-channel input and labels 0-3)."""
+    builders = {
+        "ResNet_101": lambda: resnet.ResNet_101(112),
+        "AttentionNet_56": lambda: attention.AttentionNet_56(),
+        "EfficientNetB0": lambda: efficientnet.EfficientNetB0(),
+        "GhostNet": lambda: ghostnet.GhostNet(),
+        "gac_resnet50": lambda: gac.gac_resnet50(ndemog=4, adap=True,
+                                                 use_att=True)}
+    m = builders[name]()
+    init_weights(m, torch.Generator().manual_seed(0))
+    seeded_batchnorm_(m, 52)
+    g = torch.Generator().manual_seed(53)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, gac.AttBlock):
+                mod.att_channel.normal_(0.0, 1.0, generator=g)
+    return m.cuda().eval()
+
+
+def zoo_inputs(name: str, batch: int):
+    g = torch.Generator().manual_seed(54)
+    if name.startswith("gac"):
+        return [torch.randn(batch, 6, 112, 112, generator=g),
+                torch.arange(batch) % 4]
+    return torch.randn(batch, 3, 112, 112, generator=g)
+
+
+def zoo_run(m, inputs):
+    return m(*inputs) if isinstance(inputs, list) else m(inputs)
+
+
+def phase_zoo() -> dict:
+    """Phase 29: the backbone zoo on the card in eval mode: each model's
+    output and the gradients of a seeded weighting of it against the CPU
+    (``card_vs_cpu``; batch 2, GAC batch 4 so that its labels cover the
+    four groups), no B1/B1b/B2/B2b launch, and bf16 batch-256 forward
+    images/s."""
+    out = {}
+    for name in ZOO_MODELS:
+        m = zoo_model(name)
+        reset_launches()
+        res = card_vs_cpu(f"phase 29 {name}", m, zoo_run,
+                          zoo_inputs(name, 4 if name.startswith("gac")
+                                     else CPU_BATCH), f64_on_miss=True)
+        inputs = to_device(zoo_inputs(name, ZOO_RATE_BATCH), "cuda")
+        res["bf16_batch256"] = no_grad_rate(lambda i: zoo_run(m, i), inputs,
+                                            ZOO_RATE_BATCH, "bf16")
+        torch.cuda.synchronize()
+        res["launches"] = read_launches()
+        if any(res["launches"].values()):
+            fail(f"phase 29 {name}: launched {res['launches']}")
+        grads = (f"{res['worst_grad_ratio_vs_cpu_f32']:.3f} of phase 8's "
+                 f"tolerance from the CPU's"
+                 if "worst_grad_ratio_vs_cpu_f32" in res else
+                 f"{res['worst_grad_ratio']:.3f} of phase 8's tolerance from "
+                 f"a float64 run (CPU f32 "
+                 f"{res['cpu_f32_worst_grad_ratio']:.3f})")
+        log(f"phase 29: {name}: card vs CPU output rel "
+            f"{res['output_rel_err']:.2e}, worst gradient {grads}; "
+            f"bf16 batch {ZOO_RATE_BATCH} forward "
+            f"{res['bf16_batch256']['images_per_s']:.1f} images/s "
+            f"({res['bf16_batch256']['device_ms']:.2f} ms device)")
+        out[name] = res
+        del m, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+HEAD_KINDS = ("AMSoftmaxV2", "ArcNegFace", "CircleLoss", "MagFace",
+              "MVSoftmax", "NPCFace")
+
+
+def _head_grads(head, feats, labels, w):
+    """Logits (and MagFace's regularizer) and the gradients of a weighting
+    of them with respect to the features and the class weights."""
+    f = feats.clone().requires_grad_(True)
+    head.zero_grad(set_to_none=True)
+    out = head(f, labels)
+    logits, reg = out if isinstance(out, tuple) else (out, None)
+    loss = (logits * w).sum() + (0 if reg is None else reg.sum())
+    loss.backward()
+    (pname, p), = head.named_parameters()
+    return {"logits": logits.detach(), "features": f.grad,
+            pname: p.grad}
+
+
+def phase_heads_extra() -> dict:
+    """Phase 30: the seven extra heads at 512 x S3_CLASSES, batch
+    HEAD_BATCH, forward and backward on the card against the CPU (logits
+    within CPU_REL_TOL of scale, the feature and class-weight gradients
+    within phase 12's tolerance of their largest), the card's ms; and
+    SSTPrototype (queue SST_QUEUE) over SST_STEPS steps with the same
+    coins (a CPU generator) on both devices: logits as above, the queue
+    within 1e-5, the cursor and labels equal."""
+    g = torch.Generator().manual_seed(60)
+    feats = torch.randn(HEAD_BATCH, 512, generator=g) * 2.0
+    labels = torch.randint(0, S3_CLASSES, (HEAD_BATCH,), generator=g)
+    w = torch.randn(HEAD_BATCH, S3_CLASSES, generator=g)
+    out = {}
+    reset_launches()
+    for name in HEAD_KINDS:
+        cpu = getattr(heads_extra, name)(512, S3_CLASSES)
+        card = copy.deepcopy(cpu).cuda()
+        dev = [t.cuda() for t in (feats, labels, w)]
+        got = _head_grads(card, *dev)
+        want = _head_grads(cpu, feats, labels, w)
+        res = {}
+        for k, v in want.items():
+            err = (got[k].cpu() - v).abs().max().item()
+            scale = v.abs().max().item()
+            tol = (CPU_REL_TOL if k == "logits" else CPU_UPDATE_TOL) * scale
+            if not err <= tol:
+                fail(f"phase 30 {name}: card and CPU {k} differ by "
+                     f"{err:.3e} (scale {scale:.3e})")
+            res[f"{k}_rel_err"] = err / scale
+        res["ms"] = cuda_time_ms(lambda: _head_grads(card, *dev), reps=5,
+                                 warmup=1)
+        log(f"phase 30: {name} 512 x {S3_CLASSES} batch {HEAD_BATCH}: card "
+            f"vs CPU " + ", ".join(f"{k} {v:.1e}" for k, v in res.items()
+                                   if k != "ms")
+            + f" of scale; forward + backward {res['ms']:.2f} ms")
+        out[name] = res
+        del card, dev
+    cpu = heads_extra.SSTPrototype(512, SST_QUEUE)
+    card = copy.deepcopy(cpu).cuda()
+    rows = []
+    for step in range(SST_STEPS):
+        views = [torch.randn(HEAD_BATCH, 512, generator=g) for _ in range(4)]
+        ids = torch.randint(0, S3_CLASSES, (HEAD_BATCH,), generator=g)
+        o_card = card(*[v.cuda() for v in views], ids.cuda(),
+                      generator=torch.Generator().manual_seed(70 + step))
+        o_cpu = cpu(*views, ids,
+                    generator=torch.Generator().manual_seed(70 + step))
+        errs = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(o_card[:2], o_cpu[:2])]
+        q_err = (card.queue.cpu() - cpu.queue).abs().max().item()
+        if max(errs) > CPU_REL_TOL or q_err > 1e-5 or not (
+                torch.equal(card.labels.cpu(), cpu.labels)
+                and int(card.index) == int(cpu.index)
+                and torch.equal(o_card[2].cpu(), o_cpu[2])):
+            fail(f"phase 30 SSTPrototype step {step}: logits {errs}, queue "
+                 f"{q_err:.2e}, index {int(card.index)} vs {int(cpu.index)}")
+        rows.append({"logits_rel_err": max(errs), "queue_abs_err": q_err,
+                     "index": int(card.index)})
+    torch.cuda.synchronize()
+    out["SSTPrototype"] = rows
+    out["launches"] = read_launches()
+    if any(out["launches"].values()):
+        fail(f"phase 30: the heads launched {out['launches']}")
+    log(f"phase 30: SSTPrototype queue {SST_QUEUE}, {SST_STEPS} steps with "
+        f"the same coins: logits within "
+        f"{max(r['logits_rel_err'] for r in rows):.1e} of scale, queue "
+        f"{max(r['queue_abs_err'] for r in rows):.1e}, cursor "
+        f"{rows[-1]['index']}, labels equal; no launch")
+    return out
+
+
+def write_rb_partition(root: str, seed: int = 80):
+    """RBW_GROUPS groups of RBW_IDS identities x RBW_POS images and RBW_NEG
+    negatives, 128 px PNGs. An identity is a smooth random field (a 7 x 7
+    grid upsampled), its j-th image that field plus noise of RBW_NOISE * j
+    / (RBW_POS - 1); the negatives are pairs of a field and that field plus
+    noise of up to RBW_NOISE. With random weights an image's embedding
+    turns away from its field's quickly as the noise grows, so the noise
+    levels spread the similarities over the thresholds."""
+    from PIL import Image
+    g = torch.Generator().manual_seed(seed)
+    os.makedirs(os.path.join(root, "lists"))
+
+    def fields(n):
+        f = torch.nn.functional.interpolate(
+            torch.rand((n, 3, 7, 7), generator=g), size=(128, 128),
+            mode="bilinear", align_corners=False)
+        return f.permute(0, 2, 3, 1) * 255
+
+    def noise(shape, sigma):
+        return sigma * torch.randn(shape, generator=g)
+
+    levels = RBW_NOISE * torch.arange(RBW_POS) / (RBW_POS - 1)
+    for grp in rb_webface.ETHNICITIES[:RBW_GROUPS]:
+        os.makedirs(os.path.join(root, "images", grp))
+        ids = fields(RBW_IDS)[:, None]
+        pos = ids + noise(ids.shape[:1] + (RBW_POS, 128, 128, 3),
+                          levels[None, :, None, None, None])
+        base = fields(RBW_NEG // 2)
+        neg = torch.stack([base, base + noise(base.shape, RBW_NOISE * torch.rand(
+            (len(base), 1, 1, 1), generator=g))], 1)
+        for kind, arr in (("pos", pos), ("neg", neg)):
+            arr = arr.reshape(-1, 128, 128, 3).clamp(0, 255).round().to(
+                torch.uint8).numpy()
+            names = [f"{grp}/{kind}{i:05d}.png" for i in range(len(arr))]
+            with ThreadPoolExecutor(8) as ex:
+                list(ex.map(lambda a, n: Image.fromarray(a).save(
+                    os.path.join(root, "images", n), compress_level=1),
+                    arr, names))
+            with open(os.path.join(root, "lists", f"{kind}_pairs_samples_"
+                                   f"{grp}.txt"), "w") as f:
+                f.write("\n".join(names))
+
+
+@torch.no_grad()
+def recalibrated_resnet50(checkpoint: dict, root: str):
+    """The ResNet_50 of ``checkpoint`` on the card with every BatchNorm's
+    running statistics estimated anew over the positive images of
+    ``root``'s partition (their plain averages): after a few steps on
+    random labels its stale statistics map every image to nearly one
+    embedding, which leaves every similarity above the thresholds."""
+    net = resnet.ResNet_50(112)
+    net.load_state_dict(checkpoint["backbone"])
+    net = net.cuda().train()
+    net.dropout.eval()
+    bns = [m for m in net.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    names = []
+    for grp in rb_webface.ETHNICITIES[:RBW_GROUPS]:
+        with open(os.path.join(root, "lists",
+                               f"pos_pairs_samples_{grp}.txt")) as f:
+            names += f.read().splitlines()
+    for i in range(0, len(names), 500):
+        x = np.stack([rb_webface.load_image(os.path.join(root, "images", n))
+                      for n in names[i:i + 500]])
+        net(torch.from_numpy(x).cuda().permute(0, 3, 1, 2))
+    for m in bns:
+        m.momentum = 0.1
+    return net.eval()
+
+
+def phase_rb_webface(checkpoint: dict) -> dict:
+    """Phase 31: the RB-WebFace CLI on the card over a synthetic partition
+    with phase 28's ResNet_50 checkpoint (its BatchNorm statistics
+    estimated over the partition); the same embeddings counted on
+    the CPU (counts may differ only for pairs within RBW_NEAR of a
+    threshold); the impostor sweep alone on RBW_SWEEPS seeded unit
+    embeddings: ms and peak GiB, below a (thresholds, chunk, M) bool
+    tensor's size."""
+    out = {}
+    thresholds = np.linspace(0.3, 0.6, num=20)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_rb_partition(root)
+        out["write_s"] = time.perf_counter() - t0
+        net = recalibrated_resnet50(checkpoint, root)
+        ckpt = os.path.join(root, "s3.pt")
+        torch.save({"backbone": net.state_dict()}, ckpt)
+        argv = ["--checkpoint", ckpt, "--data_path",
+                os.path.join(root, "images"), "--partition_path",
+                os.path.join(root, "lists"), "--backbone", "ResNet_50",
+                "--device", "cuda", "--groups",
+                *rb_webface.ETHNICITIES[:RBW_GROUPS]]
+        reset_launches()
+        t0 = time.perf_counter()
+        card = test_rb_webface.main(argv)
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        fn = make_embed_fn(net, tta=False, ccrop=False, device="cuda")
+        groups = {}
+        for grp, res in card.items():
+            lists = {}
+            for kind in ("pos", "neg"):
+                with open(os.path.join(root, "lists", f"{kind}_pairs_"
+                                       f"samples_{grp}.txt")) as f:
+                    lists[kind] = rb_webface.embed_images(
+                        fn, os.path.join(root, "images"),
+                        f.read().splitlines())
+            cpu = rb_webface.evaluate_group(lists["pos"], lists["neg"],
+                                            device="cpu")
+            # pairs whose similarity lies within RBW_NEAR of a threshold
+            neg = torch.from_numpy(lists["neg"]).double()
+            sims = (neg @ neg.t())[torch.triu(torch.ones(
+                len(neg), len(neg), dtype=torch.bool), 1)].numpy()
+            pos = rb_webface.genuine_similarities(lists["pos"], device="cpu")
+            near = int(sum((np.abs(s[:, None] - thresholds) <= RBW_NEAR).sum()
+                           for s in (sims, pos)))
+            diff_pairs = sum(
+                np.abs(np.round(res[c] * n) - np.round(cpu[c] * n)).sum()
+                for c, n in (("fnr_curve", pos.size),
+                             ("fpr_curve", sims.size)))
+            if diff_pairs > near:
+                fail(f"phase 31 {grp}: card and CPU counts differ by "
+                     f"{diff_pairs:.0f} pairs, {near} lie within "
+                     f"{RBW_NEAR:g} of a threshold")
+            groups[grp] = {"card": {k: res[k] for k in ("tpr_at_fpr_1e3",
+                                                        "tpr_at_fpr_1e4")},
+                           "cpu": {k: cpu[k] for k in ("tpr_at_fpr_1e3",
+                                                       "tpr_at_fpr_1e4")},
+                           "count_diff_pairs": float(diff_pairs),
+                           "pairs_near_threshold": near,
+                           "fpr_range": [float(res["fpr_curve"].min()),
+                                         float(res["fpr_curve"].max())],
+                           "fnr_range": [float(res["fnr_curve"].min()),
+                                         float(res["fnr_curve"].max())]}
+            log(f"phase 31: {grp}: TPR@FPR 1e-3 / 1e-4 card "
+                f"{res['tpr_at_fpr_1e3']:.4f} / {res['tpr_at_fpr_1e4']:.4f}, "
+                f"CPU {cpu['tpr_at_fpr_1e3']:.4f} / "
+                f"{cpu['tpr_at_fpr_1e4']:.4f}; counts differ by "
+                f"{diff_pairs:.0f} pairs ({near} within {RBW_NEAR:g} of a "
+                f"threshold); FPR {groups[grp]['fpr_range']}, FNR "
+                f"{groups[grp]['fnr_range']}")
+        out["groups"] = groups
+    if any(out["launches"].values()):
+        fail(f"phase 31: the CLI launched {out['launches']}")
+    g = torch.Generator(device="cuda").manual_seed(81)
+    out["sweeps"] = {}
+    for m in RBW_SWEEPS:
+        # unit embeddings around a shared direction: the similarities of
+        # pairs spread over the thresholds (mean ~0.39, spread ~0.04)
+        emb = torch.randn(m, 512, generator=g, device="cuda")
+        emb[:, 0] += 18.0
+        emb = emb / emb.norm(dim=1, keepdim=True)
+        e = emb[:4096]
+        sub = rb_webface.fmr_counts(e, thresholds)[0]             # warm-up
+        sub_cpu = rb_webface.fmr_counts(e.cpu(), thresholds,
+                                        device="cpu")[0]
+        e = e.cpu().double()
+        s = (e @ e.t())[torch.triu(torch.ones(len(e), len(e),
+                                              dtype=torch.bool), 1)].numpy()
+        near = int((np.abs(s[:, None] - thresholds) <= RBW_NEAR).sum())
+        if np.abs(sub - sub_cpu).sum() > near:
+            fail(f"phase 31: the sweep over 4096 embeddings counts "
+                 f"{sub} on the card, {sub_cpu} on the CPU")
+        del e, s
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts, pairs = rb_webface.fmr_counts(emb, thresholds)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        forbidden = len(thresholds) * 2048 * m / 2 ** 30
+        if not peak < forbidden or pairs != m * (m - 1) // 2 or not (
+                np.all(np.diff(counts) <= 0) and counts[0] > counts[-1]):
+            fail(f"phase 31: sweep over {m}: peak {peak:.2f} GiB (a "
+                 f"(T, chunk, M) bool tensor: {forbidden:.2f}), counts "
+                 f"{counts[:3]}..., pairs {pairs}")
+        out["sweeps"][str(m)] = {"ms": ms, "peak_gib_above_inputs": peak,
+                                 "tchunkm_bool_gib": forbidden,
+                                 "fpr_curve": (counts / pairs).tolist()}
+        log(f"phase 31: impostor sweep over {m} embeddings ({pairs} pairs, "
+            f"20 thresholds): {ms:.1f} ms, peak {peak:.2f} GiB above the "
+            f"inputs (a (T, chunk, M) bool tensor alone: {forbidden:.2f} "
+            f"GiB)")
+        del emb
+    return out
+
+
+def phase_handoff() -> dict:
+    """Phase 32: the stage-3 CLI on the card from a reference-layout .pt
+    (a seeded full-width PSpFaceRec's ``encoder.*`` state_dict under the
+    reference names, its weights moved off init, with decoder and style
+    keys beside them), 2 steps at batch S3_BATCH from packed shards: the
+    handoff loads ``input_layer`` and ``body`` bit for bit (buffers
+    included), the CLI's checkpoint keeps the frozen body's parameters bit
+    for bit and not the file's output layer; no launch."""
+    src = PSpFaceRec(size=112)
+    init_weights(src, torch.Generator().manual_seed(90))
+    seeded_batchnorm_(src, 91)
+    g = torch.Generator().manual_seed(92)
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=g))
+    sd = {f"encoder.{k}": v for k, v in src.encoder.state_dict().items()}
+    sd["decoder.synthesis.b4.const"] = torch.zeros(512, 4, 4)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "reference.pt")
+        torch.save({"state_dict": sd, "latent_avg": torch.zeros(18, 512)},
+                   path)
+        fresh = PSpFaceRec(size=112).cuda()
+        train_stage3.load_encoder_handoff(fresh, path)
+        for part in ("input_layer", "body"):
+            got = getattr(fresh.encoder, part).state_dict()
+            for k, v in getattr(src.encoder, part).state_dict().items():
+                if not torch.equal(got[k].cpu(), v):
+                    fail(f"phase 32: {part}.{k} was not loaded bit for bit")
+        del fresh
+        x, y = stage3_inputs(2 * S3_BATCH, seed=93)
+        shards = os.path.join(root, "shards")
+        write_packed(shards, x.numpy(), y.numpy() % 16,
+                     [str(i) for i in range(16)], shard_size=16)
+        cfg = dict(json.load(open(STAGE3_CONFIG)), data_root=root,
+                   train_subdir="shards", model_root=os.path.join(root, "runs"),
+                   name="handoff", batch_size=S3_BATCH, eval_benchmarks=[])
+        cfg_path = os.path.join(root, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        reset_launches()
+        t0 = time.perf_counter()
+        train_stage3.main(["--config", cfg_path, "--encoder_checkpoint", path,
+                           "--max_steps", "2", "--device", "cuda"])
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        run = os.path.join(root, "runs", "handoff")
+        ck = torch.load(os.path.join(run, sorted(
+            f for f in os.listdir(run) if f.startswith("step_"))[-1]),
+            map_location="cpu", weights_only=True)["backbone"]
+        body = [k for k, _ in src.encoder.body.named_parameters()]
+        changed = [k for k in body if not torch.equal(
+            ck[f"encoder.body.{k}"], sd[f"encoder.body.{k}"])]
+        head_kept = [k for k, _ in src.encoder.output_layer.named_parameters()
+                     if torch.equal(ck[f"encoder.output_layer.{k}"],
+                                    sd[f"encoder.output_layer.{k}"])]
+        if changed or head_kept or any(out["launches"].values()):
+            fail(f"phase 32: body changed {changed[:3]}, output layer from "
+                 f"the file {head_kept[:3]}, launches {out['launches']}")
+    out["body_tensors"] = len(body)
+    log(f"phase 32: stage-3 CLI from a reference-layout .pt on the card, 2 "
+        f"steps in {out['cli_s']:.1f} s: input_layer and body loaded bit for "
+        f"bit, the frozen body's {len(body)} parameters unchanged, the "
+        f"output layer fresh; launches {out['launches']}")
+    return out
+
+
+def zoo_launches(zoo: dict) -> dict:
+    """B1/B1b/B2/B2b launches summed over phases 28-32's recorded counts."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == set(KERNELS):
+                found.append(node)
+            else:
+                for v in node.values():
+                    walk(v)
+
+    walk(zoo)
+    return {k: sum(d[k] for d in found) for k in KERNELS}
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2838,6 +3600,12 @@ def main():
             "inception": phase_inception(s1_g_ema)}
     del s1_g_ema
     gens["eval_tools"] = phase_eval_tools()
+    zoo = {name: phase_zoo_stage3(name) for name in ZOO_S3_BACKBONES}
+    zoo["remat"] = phase_remat()
+    zoo["zoo"] = phase_zoo()
+    zoo["heads_extra"] = phase_heads_extra()
+    zoo["rb_webface"] = phase_rb_webface(zoo["ResNet_50"].pop("checkpoint"))
+    zoo["handoff"] = phase_handoff()
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -2863,6 +3631,8 @@ def main():
                 name],
             "launches_stylegan1": gens["stylegan1"]["launches_fwd_bwd"][
                 name],
+            # phases 28-32: each checked to be 0
+            "launches_stage3_zoo": zoo_launches(zoo)[name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -2876,6 +3646,7 @@ def main():
     print(json.dumps({"stage1": stage1}))
     print(json.dumps({"e4e": e4e}))
     print(json.dumps({"generators_fid_eval": gens}))
+    print(json.dumps({"stage3_zoo": zoo}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

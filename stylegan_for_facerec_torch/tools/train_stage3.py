@@ -4,19 +4,26 @@
         --config configs/stage3_bupt_ir50.json \\
         [--encoder_checkpoint runs/s2/step_000100000.pt] [--avg_image a.npy] \\
         [--packed_dir shards/] [--max_steps N] [--resume] \\
-        [--compute_dtype bfloat16|float32] [--device cuda|cpu]
+        [--compute_dtype bfloat16|float32] [--remat] [--device cuda|cpu]
 
 The JAX package's ``tools/train_stage3.py`` on one GPU (the card unless
 ``--device cpu``; raises when no GPU is found). ``--config`` is a JSON or
 YAML ``Stage3Options`` file or a reference python config. The backbone
-(``pSp``: ``PSpFaceRec`` with the config's block dropout, or an IR
-``Backbone`` by name) trains with the config's margin head, focal loss and
-SGD; the body is frozen while ``epoch <= freeze_backbone_epochs``
-(0-based epochs). ``--encoder_checkpoint`` is a stage-2 checkpoint of
-this package: its ``encoder.input_layer`` and ``encoder.body`` load into
-the backbone, and its ``avg_image`` becomes the backbone's unless
-``--avg_image`` or the config names one (.npy (H, W, 3) in [-1, 1], or an
-image file). Images come from ``--packed_dir`` (or a packed
+(``build_backbone``: ``pSp``, a ``PSpFaceRec`` with the config's block
+dropout; an IR/IR-SE ``Backbone``, a ``ResNet_50/101/152`` or a
+``MobileFaceNet`` by name) trains with the config's margin head, focal
+loss and SGD; the body is frozen while ``epoch <= freeze_backbone_epochs``
+(0-based epochs); a ResNet or MobileFaceNet has no body, so, as in the JAX
+package, it trains whole in those epochs too. ``--remat`` recomputes the
+backbone's forward in the backward pass. ``--encoder_checkpoint`` (pSp
+only) hands a stage-2 encoder's ``input_layer`` and ``body`` to the
+backbone (``load_encoder_handoff``): a directory is a JAX package run or
+checkpoint directory (read without JAX, its ``avg_image.npy`` taken); a
+file is a stage-2 checkpoint of this package or a reference torch ``.pt``
+(a state_dict, bare or under ``state_dict``, with the reference's
+``encoder.*`` names). The stage-2 average image becomes the backbone's
+unless ``--avg_image`` or the config names one (.npy (H, W, 3) in
+[-1, 1], or an image file). Images come from ``--packed_dir`` (or a packed
 ``data_root/train_subdir``) as uint8 shards, else from the image tree
 through the threaded loader; the crop to the input size and the flip run
 in the train step. After each epoch every ``eval_benchmarks`` set found
@@ -33,6 +40,7 @@ import importlib.util
 import os
 import signal
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,8 +59,9 @@ def _parse(argv):
     ap.add_argument("--packed_dir", default=None,
                     help="uint8 shard directory (data/packed.py layout)")
     ap.add_argument("--encoder_checkpoint", default=None,
-                    help="stage-2 checkpoint of this package (overrides "
-                    "the config's)")
+                    help="stage-2 checkpoint of this package, reference "
+                    "torch .pt or JAX run directory (overrides the "
+                    "config's)")
     ap.add_argument("--avg_image", default=None,
                     help="average image (overrides the config's and the "
                     "stage-2 checkpoint's)")
@@ -60,6 +69,9 @@ def _parse(argv):
                     help="copy each batch to the card when it is used")
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the backbone's forward in the backward "
+                    "pass (less activation memory)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -75,18 +87,50 @@ def load_options(path):
     return load_config(Stage3Options, path)
 
 
+BACKBONES = ("pSp", "MobileFaceNet", "IR_50", "IR_101", "IR_152",
+             "IR_SE_50", "IR_SE_101", "IR_SE_152", "ResNet_50", "ResNet_101",
+             "ResNet_152")
+
+
 def build_backbone(opts):
-    """``pSp`` (the paper's backbone) or an IR/IR-SE ``Backbone`` by its
-    factory name."""
-    from ..models import irse, psp
-    if opts.backbone == "pSp":
-        return psp.PSpFaceRec(size=opts.input_size[0],
-                              emb_size=opts.emb_size,
+    """The backbone ``opts.backbone`` names (``BACKBONES``, the names the
+    JAX package's stage-3 CLI builds): ``pSp`` (the paper's backbone, with
+    the config's block dropout), ``MobileFaceNet``, an IR/IR-SE
+    ``Backbone`` or a ``ResNet`` (dropout 0.5 before its embedding, as the
+    JAX CLI builds it) at ``opts.input_size``; another name raises
+    ``SystemExit``."""
+    from ..models import irse, mobilefacenet, psp, resnet
+    name, size = opts.backbone, opts.input_size[0]
+    if name not in BACKBONES:
+        raise SystemExit(f"unknown backbone {name}")
+    if name == "pSp":
+        return psp.PSpFaceRec(size=size, emb_size=opts.emb_size,
                               block_dropout=opts.dropout or None)
-    factory = getattr(irse, opts.backbone, None)
-    if factory is None or not opts.backbone.startswith("IR_"):
-        raise SystemExit(f"unknown backbone {opts.backbone}")
-    return factory(opts.input_size[0], emb_size=opts.emb_size)
+    if name == "MobileFaceNet":
+        return mobilefacenet.MobileFaceNet(embedding_size=opts.emb_size)
+    module = resnet if name.startswith("ResNet_") else irse
+    return getattr(module, name)(size, emb_size=opts.emb_size)
+
+
+def load_encoder_handoff(backbone, path: str) -> Optional[torch.Tensor]:
+    """Load a stage-2 encoder's ``input_layer`` and ``body`` into a
+    ``PSpFaceRec`` strictly (its output layer keeps its own weights) and
+    return the stage-2 average image ((H, W, 3) in [-1, 1]) or None. A
+    directory is a JAX package run or checkpoint directory (npz, read
+    without JAX; its ``avg_image.npy``); a file is a ``torch.save`` state
+    dict, bare or under ``state_dict``, with the reference's
+    ``encoder.*`` names: a stage-2 checkpoint of this package (with its
+    ``avg_image``) or a reference torch ``.pt``."""
+    from ..utils.checkpoint import load_stage2_encoder, read_jax_checkpoint
+    from ..utils.convert import load_stage2_encoder_from_jax
+    if os.path.isdir(path):
+        load_stage2_encoder_from_jax(backbone, read_jax_checkpoint(path))
+        avg = os.path.join(path, "avg_image.npy")
+        return _avg_image(avg) if os.path.exists(avg) else None
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    load_stage2_encoder(backbone, ckpt.get("state_dict", ckpt))
+    avg = ckpt.get("avg_image")
+    return avg if torch.is_tensor(avg) else None
 
 
 def _avg_image(path: str) -> torch.Tensor:
@@ -106,7 +150,7 @@ def main(argv=None):
                                is_packed_dir)
     from ..models.psp import PSpFaceRec
     from ..train.stage3 import Stage3Config, Stage3Trainer
-    from ..utils.checkpoint import CheckpointManager, load_stage2_encoder
+    from ..utils.checkpoint import CheckpointManager
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -150,7 +194,7 @@ def main(argv=None):
         stages=tuple(opts.stages),
         warmup_batches=opts.warmup_epochs * steps_per_epoch,
         freeze_backbone_epochs=opts.freeze_backbone_epochs,
-        compute_dtype=args.compute_dtype,
+        compute_dtype=args.compute_dtype, remat=args.remat,
         augment_crop=opts.input_size[0])
     trainer = Stage3Trainer(backbone, cfg, steps_per_epoch=steps_per_epoch,
                             device=str(device))
@@ -161,14 +205,12 @@ def main(argv=None):
         if opts.backbone != "pSp":
             raise SystemExit("--encoder_checkpoint loads into the pSp "
                              "backbone only")
-        ckpt = torch.load(enc_path, map_location="cpu", weights_only=True)
-        load_stage2_encoder(backbone, ckpt["state_dict"])
+        avg = load_encoder_handoff(backbone, enc_path)
         print(f"[init] stage-2 encoder input_layer and body from {enc_path}")
-        if not avg_path and ckpt.get("avg_image") is not None:
+        if not avg_path and avg is not None:
             with torch.no_grad():
-                backbone.avg_image.copy_(ckpt["avg_image"].permute(2, 0, 1))
+                backbone.avg_image.copy_(avg.permute(2, 0, 1))
             print("[init] avg image from the stage-2 checkpoint")
-        del ckpt
     if avg_path and isinstance(backbone, PSpFaceRec):
         with torch.no_grad():
             backbone.avg_image.copy_(_avg_image(avg_path).permute(2, 0, 1))

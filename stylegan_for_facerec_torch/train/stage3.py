@@ -1,11 +1,13 @@
 """Stage-3 face-recognition trainer on one GPU, as
 ``stylegan_for_facerec_tpu/train/stage3.py`` without its mesh.
 
-  * The backbone (``PSpFaceRec`` or an IR ``Backbone``) maps NHWC images
-    in [-1, 1] (or uint8, mapped by x / 127.5 - 1) to embeddings; the
-    trainer owns the class weight ``head_weight`` (C, D). The margin
-    (ArcFace, CosFace or plain softmax) and the loss (focal or CE) run in
-    float32 on the cosine of the L2-normalized features and class weights.
+  * The backbone (``PSpFaceRec``, an IR ``Backbone``, a ``ResNet`` or a
+    ``MobileFaceNet``) maps NHWC images in [-1, 1] (or uint8, mapped by
+    x / 127.5 - 1) to embeddings; the trainer owns the class weight
+    ``head_weight`` (C, D). The margin (ArcFace, CosFace or plain
+    softmax) and the loss (focal or CE) run in float32 (float64 for a
+    float64 backbone, as a float64 reference step has) on the cosine of
+    the L2-normalized features and class weights.
   * ``torch.optim.SGD`` with momentum, weight decay on every parameter but
     BatchNorm's, and the learning rate of ``Stage3Schedule`` at the
     optimizer's own step count (``opt_count``, saved with the checkpoint),
@@ -23,16 +25,24 @@
     (None: whole-batch statistics, the one-GPU default).
   * Dropout masks, crop offsets and flips draw from ``generator``, a
     ``torch.Generator`` on the trainer's device seeded from ``seed``.
+  * ``remat`` runs the backbone's forward under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass instead of kept. The recomputation
+    draws the forward's dropout masks again (the generator's state is
+    replayed) and does not move BatchNorm's running statistics a second
+    time, so the step is the one without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..losses.focal import focal_loss, softmax_cross_entropy, topk_accuracy
 from ..models.heads import arcface_margin, cosface_margin
@@ -47,8 +57,8 @@ FROZEN_PREFIXES = ("backbone.body", "backbone.encoder.body")
 
 @dataclasses.dataclass(frozen=True)
 class Stage3Config:
-    """The JAX package's ``Stage3Config`` without the mesh's ``sync_bn``
-    and without ``remat``."""
+    """The JAX package's ``Stage3Config`` without the mesh's
+    ``sync_bn``."""
 
     emb_size: int = 512
     num_classes: int = 28000
@@ -66,7 +76,32 @@ class Stage3Config:
     freeze_backbone_epochs: int = 3
     bn_groups: Optional[int] = None
     compute_dtype: str = "bfloat16"
+    remat: bool = False
     augment_crop: Optional[int] = None
+
+
+@contextlib.contextmanager
+def _as_in_forward(generator: torch.Generator, state: torch.Tensor,
+                   batchnorms):
+    """A recomputation's context: ``generator`` at ``state`` (the forward's
+    start, so dropout draws the same masks), and ``batchnorms`` at
+    momentum 0, so their running statistics stay as the forward left
+    them (running * 1 + batch * 0); the momenta, the generator and
+    ``num_batches_tracked`` restored after. The recomputation saves the
+    same tensors for the backward as the forward did."""
+    after = generator.get_state()
+    generator.set_state(state)
+    saved = [(m, m.momentum, m.num_batches_tracked.clone()) for m in
+             batchnorms]
+    for m in batchnorms:
+        m.momentum = 0.0
+    try:
+        yield
+    finally:
+        generator.set_state(after)
+        for m, momentum, tracked in saved:
+            m.momentum = momentum
+            m.num_batches_tracked.copy_(tracked)
 
 
 class Stage3Trainer:
@@ -93,6 +128,8 @@ class Stage3Trainer:
         for m in backbone.modules():
             if isinstance(m, Dropout):
                 m.generator = self.generator
+        self._batchnorms = [m for m in backbone.modules() if isinstance(
+            m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats]
         self.schedule = optim.Stage3Schedule(
             base_lr=cfg.lr, warmup_batches=cfg.warmup_batches,
             steps_per_epoch=steps_per_epoch, stages=tuple(cfg.stages))
@@ -131,7 +168,8 @@ class Stage3Trainer:
         """{parameter name: trains}; with ``frozen`` the encoder body
         (``backbone.body`` of a Backbone, ``backbone.encoder.body`` of a
         PSpFaceRec) does not train; the input layer, output layer and head
-        do."""
+        do. A backbone without a ``body`` (``ResNet``, ``MobileFaceNet``)
+        trains whole, as in the JAX package."""
         names = [k for k, _ in self.named_parameters()]
         return optim.freeze_mask_for(names, FROZEN_PREFIXES if frozen
                                      else ())
@@ -161,15 +199,28 @@ class Stage3Trainer:
     def _loss(self, images: torch.Tensor, labels: torch.Tensor):
         if images.dtype == torch.uint8:
             images = images.float() / 127.5 - 1.0
+        x = images.permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.cfg.compute_dtype == "bfloat16"):
-            features = self.backbone(images.permute(0, 3, 1, 2))
-        logits = self._margin_logits(features.float(), labels)
+            if self.cfg.remat:
+                features = checkpoint(self.backbone, x, use_reentrant=False,
+                                      context_fn=self._remat_contexts)
+            else:
+                features = self.backbone(x)
+        # float32 (float64 for a float64 backbone)
+        features = features.to(torch.promote_types(features.dtype,
+                                                   torch.float32))
+        logits = self._margin_logits(features, labels)
         if self.cfg.loss == "Focal":
             loss = focal_loss(logits, labels)
         else:
             loss = softmax_cross_entropy(logits, labels)
         return loss, logits.detach()
+
+    def _remat_contexts(self):
+        """(forward, recomputation) contexts of one checkpointed forward."""
+        return contextlib.nullcontext(), _as_in_forward(
+            self.generator, self.generator.get_state(), self._batchnorms)
 
     # -- public ------------------------------------------------------------
 

@@ -21,7 +21,13 @@
     into the pSp decoder.
   * ``load_stage2_encoder``: the stage-2 -> stage-3 handoff, a stage-2
     ``PSp`` state_dict's ``encoder.input_layer`` and ``encoder.body`` into
-    a ``PSpFaceRec``; ``load_backbone``: a stage-3 file's backbone.
+    a ``PSpFaceRec`` (a file of this package, or a reference torch
+    ``.pt``: the same module names); ``load_backbone``: a stage-3 file's
+    backbone.
+  * ``read_jax_checkpoint``: a checkpoint directory of the JAX package's
+    npz format, read without JAX: its ``leaves.npz`` placed by the
+    ``manifest.json`` tree description, as nested dicts of numpy arrays
+    (what ``utils.convert.from_jax`` takes).
   * ``load_state_dict_file``: a ``torch.save``d state_dict, bare or under
     ``state_dict`` (the ``save_checkpoint`` layout), into any module;
     ``load_inception`` reads a torchvision or pytorch-fid InceptionV3
@@ -30,8 +36,13 @@
 
 from __future__ import annotations
 
+import ast
+import json
 import os
-from typing import Dict, List, Mapping, Optional
+import re
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
 
 import torch
 from torch import nn
@@ -193,3 +204,139 @@ class CheckpointManager:
     def latest(self) -> Optional[str]:
         steps = self._steps()
         return os.path.join(self.root, steps[-1]) if steps else None
+
+
+# -- the JAX package's npz checkpoints ---------------------------------------
+
+def _treedef_leaf_paths(desc: str) -> List[Tuple]:
+    """The path of every leaf of a ``str(PyTreeDef)`` description, in
+    flatten order. A dict contributes its key, a tuple, list or custom
+    node's child list its position; a leaf is ``*``, ``None`` holds none,
+    and a custom node's metadata (``namedtuple[TraceState]``) holds none.
+    """
+    pos, paths = 0, []
+
+    def ws():
+        nonlocal pos
+        while pos < len(desc) and desc[pos].isspace():
+            pos += 1
+
+    def string():
+        nonlocal pos
+        quote, start = desc[pos], pos
+        pos += 1
+        while desc[pos] != quote:
+            pos += 2 if desc[pos] == "\\" else 1
+        pos += 1
+        return ast.literal_eval(desc[start:pos])
+
+    def skip_group():
+        nonlocal pos
+        depth = 0
+        while True:
+            c = desc[pos]
+            if c in "'\"":
+                string()
+                continue
+            depth += c in "([{"
+            depth -= c in ")]}"
+            pos += 1
+            if depth == 0:
+                return
+
+    def items(close, path, keyed):
+        nonlocal pos
+        pos += 1
+        i = 0
+        while True:
+            ws()
+            if desc[pos] == close:
+                pos += 1
+                return
+            key = i
+            if keyed:
+                key = string() if desc[pos] in "'\"" else int(
+                    re.match(r"-?\d+", desc[pos:]).group())
+                if not isinstance(key, str):
+                    pos += len(str(key))
+                ws()
+                pos += 1                           # ':'
+            value(path + (key,))
+            i += 1
+            ws()
+            if desc[pos] == ",":
+                pos += 1
+
+    def value(path):
+        nonlocal pos
+        ws()
+        c = desc[pos]
+        if c == "*":
+            paths.append(path)
+            pos += 1
+        elif c == "{":
+            items("}", path, True)
+        elif c in "([":
+            items(")" if c == "(" else "]", path, False)
+        elif c in "'\"":
+            string()
+        else:
+            name = re.match(r"[\w.]*", desc[pos:]).group()
+            pos += len(name)
+            if pos < len(desc) and desc[pos] == "(" and name != "None":
+                items(")", path, False)
+            elif pos < len(desc) and desc[pos] == "[":
+                skip_group()
+            elif not name:
+                raise ValueError(f"tree description: unexpected {c!r} at "
+                                 f"{pos}")
+
+    ws()
+    if not desc.startswith("PyTreeDef("):
+        raise ValueError("not a PyTreeDef description")
+    pos = len("PyTreeDef")
+    items(")", (), False)
+    return [p[1:] for p in paths]
+
+
+def _checkpoint_dir(path: str) -> str:
+    """A checkpoint directory, or a run directory's newest ``step_*`` (or
+    ``best``) checkpoint, as the JAX package resolves it."""
+    if os.path.exists(os.path.join(path, "manifest.json")):
+        return path
+    steps = sorted(d for d in os.listdir(path) if d.startswith("step_"))
+    if steps:
+        return os.path.join(path, steps[-1])
+    if os.path.exists(os.path.join(path, "best", "manifest.json")):
+        return os.path.join(path, "best")
+    raise SystemExit(f"{path}: no manifest.json, step_* or best/ checkpoint "
+                     f"of the JAX package")
+
+
+def read_jax_checkpoint(path: str) -> Dict:
+    """A JAX npz checkpoint directory (or run directory) as nested dicts
+    of numpy arrays, keyed as the saved tree's dicts; the entries of a
+    tuple, list or custom node (an optimizer state) are keyed by position.
+    Reads ``manifest.json``'s tree description and ``leaves.npz``; the
+    pickled ``treedef.pkl`` needs JAX and is not read. A checkpoint of
+    the ``orbax`` backend is refused."""
+    ckpt = _checkpoint_dir(path)
+    with open(os.path.join(ckpt, "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest.get("backend", "npz") != "npz":
+        raise SystemExit(f"{ckpt}: a {manifest['backend']} checkpoint; only "
+                         f"the JAX package's npz checkpoints are read "
+                         f"(save with backend='npz')")
+    paths = _treedef_leaf_paths(manifest["treedef"])
+    data = np.load(os.path.join(ckpt, "leaves.npz"))
+    if len(paths) != len(data.files) or len(paths) != manifest.get(
+            "n_leaves", len(paths)):
+        raise ValueError(f"{ckpt}: the tree description has {len(paths)} "
+                         f"leaves, leaves.npz {len(data.files)}")
+    tree: Dict = {}
+    for i, p in enumerate(paths):
+        node = tree
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = data[f"leaf_{i}"]
+    return tree

@@ -31,11 +31,20 @@ rules are those of the reference torch export:
   * ``noise_const`` and the mapping network's ``w_avg`` (when it tracks
     one) from state;
   * ``PSpFaceRec.avg_image``: state (H, W, 3) -> buffer (3, H, W);
-  * the margin heads of ``models.heads``: their parameters and buffers
-    under the JAX names, unchanged (a class weight stays (C, D)).
+  * the margin heads of ``models.heads`` and ``models.heads_extra``:
+    their parameters and buffers under the JAX names, unchanged (a class
+    weight stays (C, D) or (D, C) as it is there; ``SSTPrototype``'s
+    queue, cursor and labels from state);
+  * the GAC adaptive convs (``models.gac``): ``kernel_base`` (k, k, ic,
+    oc) -> (oc, ic, k, k), ``kernel_mask`` (G, k, k, ic, 1) -> (G, 1, ic,
+    k, k); ``AttBlock.att_channel`` (G, 1, C, 1, 1) as it is.
 
 ``InceptionV3`` is made of ``nn.Conv2d`` and BatchNorm (eps 1e-3) under
-torchvision's names. A stage-3 backbone thus loads whole (``PSpFaceRec``,
+torchvision's names; so are the backbone zoo's models (``ResNet``, whose
+``fc`` reads a map the JAX package also flattens in (C, H, W) order, so
+it is transposed only; ``MobileFaceNet``; ``ResidualAttentionNet``,
+``EfficientNet`` and ``GhostNet``, whose head Linear follows a
+``Flatten(hw)``; ``EfficientNet``'s ``SamePadConv`` is an ``nn.Conv2d``). A stage-3 backbone thus loads whole (``PSpFaceRec``,
 ``Backbone``), and ``load_stage3_from_jax`` fills a ``Stage3Trainer``
 from the JAX trainer's trees; ``load_stage1_from_jax`` fills a ``Stage1Trainer`` from the JAX
 stage-1 train state; ``load_e4e_from_jax`` fills an ``E4eCoach`` from the
@@ -54,7 +63,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models import heads
+from ..models import gac, heads, heads_extra
 from ..models.psp import PSp, PSpFaceRec
 from ..models.stylegan2 import (ConstantInput, EqualConv2d, EqualLinear,
                                 FusedLeakyReLU, ModulatedConv2d,
@@ -127,7 +136,9 @@ def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping,
     if isinstance(mod, PSpFaceRec):
         return {"avg_image": np.transpose(np.asarray(s["avg_image"]),
                                           (2, 0, 1))}
-    if isinstance(mod, (heads._Head, heads.AmSoftmax)):
+    if isinstance(mod, (heads._Head, heads.AmSoftmax,
+                        heads_extra._ClassColumns, heads_extra.ArcNegFace,
+                        heads_extra.SSTPrototype)):
         own = [k for k, _ in mod.named_parameters(recurse=False)]
         own += [k for k, _ in mod.named_buffers(recurse=False)]
         return {k: p[k] if k in p else s[k] for k in own}
@@ -137,6 +148,12 @@ def _local_arrays(mod: nn.Module, p: Mapping, s: Mapping,
                 "num_batches_tracked": np.asarray(0, dtype=np.int64)}
     if isinstance(mod, nn.PReLU):
         return {"weight": p["weight"]}
+    if isinstance(mod, gac.AdaConv2dFaster):
+        return {"kernel_base": _oihw(p["kernel_base"]),
+                "kernel_mask": np.transpose(np.asarray(p["kernel_mask"]),
+                                            (0, 4, 3, 1, 2))}
+    if isinstance(mod, gac.AttBlock):
+        return {"att_channel": p["att_channel"]}
     if isinstance(mod, (FullyConnectedLayer, EqualLinear)):
         out = {"weight": p["weight"]}
         if mod.bias is not None:
@@ -243,3 +260,23 @@ def load_e4e_from_jax(coach, params: Mapping, state: Mapping,
     load_from_jax(coach.model, params, state)
     load_from_jax(coach.discriminator, d_params, {})
     return coach
+
+
+def load_stage2_encoder_from_jax(backbone: PSpFaceRec, tree: Mapping
+                                 ) -> None:
+    """The stage-2 -> stage-3 handoff from a JAX run directory's tree
+    (``utils.checkpoint.read_jax_checkpoint``): its ``params.encoder`` and
+    ``state.encoder`` ``input_layer`` and ``body`` into ``backbone``'s
+    encoder, strictly; the output layer keeps its own weights. Raises
+    ``SystemExit`` when the layouts differ (another depth or mode)."""
+    params = tree["params"]["encoder"]
+    state = tree.get("state", {}).get("encoder", {})
+    for part in ("input_layer", "body"):
+        mod = getattr(backbone.encoder, part)
+        try:
+            mod.load_state_dict(from_jax(mod, params[part],
+                                         state.get(part, {})), strict=True)
+        except (KeyError, RuntimeError) as e:
+            raise SystemExit(f"the stage-2 encoder.{part} does not match "
+                             f"the stage-3 backbone (another depth or "
+                             f"mode?): {str(e)[:300]}") from e

@@ -1,9 +1,9 @@
 """Training logs: ``AverageMeter``, ``aggregate_loss_dicts``,
 ``MetricLogger`` (scalars as JSON lines, per-benchmark verification
-results, image grids as PNG), ``profile_trace`` (a ``torch.profiler``
-Chrome trace) and ``StepTimer``, as
-``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb backend
-and ROC plot."""
+results with their ROC curves, image grids as PNG), ``render_roc_curve``,
+``profile_trace`` (a ``torch.profiler`` Chrome trace) and ``StepTimer``,
+as ``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb
+backend."""
 
 from __future__ import annotations
 
@@ -73,14 +73,21 @@ class MetricLogger:
         print(f"[step {step}] {line}", flush=True)
 
     def log_benchmark(self, step: int, db_name: str, acc: float,
-                      best_threshold: float, epoch: Optional[int] = None):
+                      best_threshold: float, epoch: Optional[int] = None,
+                      roc=None):
         """A verification benchmark's accuracy and best threshold, as
-        ``<db_name>_Accuracy`` and ``<db_name>_Best_Threshold``."""
+        ``<db_name>_Accuracy`` and ``<db_name>_Best_Threshold``; with
+        ``roc`` (tpr, fpr) also its ROC curve, rendered as the image
+        ``<db_name>_ROC_Curve`` (needs matplotlib)."""
         payload = {f"{db_name}_Accuracy": acc,
                    f"{db_name}_Best_Threshold": best_threshold}
         if epoch is not None:
             payload["epoch"] = epoch
         self.log(step, payload)
+        if roc is not None:
+            tpr, fpr = roc
+            self.log_image(f"{db_name}_ROC_Curve",
+                           render_roc_curve(fpr, tpr), step)
 
     def log_image(self, name: str, image, step: int) -> Optional[str]:
         """``image``: uint8 HWC array. Returns the written path (None
@@ -97,6 +104,24 @@ class MetricLogger:
         if self._file:
             self._file.close()
             self._file = None
+
+
+def render_roc_curve(fpr, tpr) -> np.ndarray:
+    """The ROC curve plotted as a uint8 (H, W, 3) image. matplotlib is
+    imported here, so nothing else of this package needs it."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig = plt.figure()
+    try:
+        plt.xlabel("FPR", fontsize=14)
+        plt.ylabel("TPR", fontsize=14)
+        plt.title("ROC Curve", fontsize=14)
+        plt.plot(np.asarray(fpr), np.asarray(tpr), linewidth=2)
+        fig.canvas.draw()
+        return np.asarray(fig.canvas.buffer_rgba())[..., :3].copy()
+    finally:
+        plt.close(fig)
 
 
 @contextlib.contextmanager
