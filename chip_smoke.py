@@ -186,13 +186,41 @@ Phases, each fatal on failure (nonzero exit, no result line):
      seeded PSpFaceRec's encoder.* state_dict under the reference names):
      the input layer and body loaded bit for bit, 2 steps, the frozen
      body unchanged.
-Phases 28-32 launch none of B1, B1b, B2 or B2b.
+ 33. MTCNN with its real weights: PNet at every pyramid shape of a 250²
+     image, RNet on 24² and ONet on 48² batches, card vs CPU; the whole
+     cascade on seeded drawn faces (boxes must reach ONet), card vs CPU
+     boxes and landmarks (a difference only where one side agrees with a
+     float64 CPU run); align_multi's crops card vs CPU; detection images/s
+     of drawn faces at 250² (min face 20) and square-padded 1024² (min
+     face 100, thresholds 0.9, mtcnn_crop_align's settings), beside the
+     PNet calls and the RNet and ONet candidates an image, and the
+     device's busy share of each;
+ 34. the data CLIs on the card over a generated tree of 24 photos (1024 x
+     768 drawn faces, 4 identities): mtcnn_crop_align -> make_filelist ->
+     pack_train -> pack_rfw, rfw_crop_align from one photo's landmarks
+     (the crop mtcnn_crop_align wrote, within a level on average), then
+     train_stage3 --packed_dir on the shards, 2 steps of the recipe with
+     the packed pairs as its verification set;
+ 35. the loaders: which C++ loader was built (printed as "native_loader:
+     built (png yes|no)" or "native_loader: unavailable: <reason>"); when
+     built, its batches against the Python loader's (PNG at the target
+     size bit for bit, JPEG 112 -> 128 within 2.2/255) and its images/s
+     (8 threads; 112² JPEGs to 128, 512² JPEGs to 128 with and without
+     fast_decode); the Python loader's images/s, RandAugment's (2 ops, one
+     thread), pack_dataset's, and PackedLoader + device_prefetch's at
+     batch 256;
+ 36. does the loader keep up with stage 3: ResNet_50 and the recipe's
+     PSpFaceRec (IR-SE-50) bf16 batch-256 steps fed by PackedLoader +
+     device_prefetch from 2048 page-cached packed images, against the
+     same steps on a resident batch: ms a step over two epochs (two epoch
+     restarts), the host's wait for a batch, and the device's idle share
+     over one epoch's steps.
+Phases 28-36 launch none of B1, B1b, B2 or B2b.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
 as nvidia-smi reports them, and the ones before that the stage-1, stage-3,
-e4e, phase 24-27 ("generators_fid_eval") and phase 28-32 ("stage3_zoo")
-numbers as JSON. Exits
-nonzero without a GPU.
+e4e, phase 24-27 ("generators_fid_eval"), phase 28-32 ("stage3_zoo") and
+phase 33-36 ("host_data") numbers as JSON. Exits nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -227,10 +255,14 @@ import time
 import numpy as np
 import torch
 
+from stylegan_for_facerec_torch.data import native_loader
+from stylegan_for_facerec_torch.data.dataset import DataLoader, FacesDataset
 from stylegan_for_facerec_torch.data.packed import (PackedLoader,
                                                     PackedTrainDataset,
                                                     device_prefetch,
+                                                    pack_dataset,
                                                     write_packed)
+from stylegan_for_facerec_torch.data.randaugment import RandAugment
 from stylegan_for_facerec_torch.eval.inference import (encoder_bootstrap,
                                                       run_on_batch)
 from stylegan_for_facerec_torch.eval.verification import evaluate
@@ -254,7 +286,11 @@ from stylegan_for_facerec_torch.models.stylegan2 import (
     EqualLinear, NoiseInjection, rosinality_channels)
 from stylegan_for_facerec_torch.models.stylegan2_ada import (
     EqualizedConv2d, FullyConnectedLayer, Generator, channels_for)
+from stylegan_for_facerec_torch.models import mtcnn
 from stylegan_for_facerec_torch.tools import (calc_losses_on_images,
+                                              make_filelist,
+                                              mtcnn_crop_align, pack_rfw,
+                                              pack_train, rfw_crop_align,
                                               test_rb_webface, train_stage3)
 from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build, resample
@@ -384,6 +420,28 @@ RBW_GROUPS, RBW_IDS, RBW_POS, RBW_NEG = 4, 100, 5, 1000
 RBW_SWEEPS = (20000, 100000)
 RBW_NEAR = 1e-5
 RBW_NOISE = 3.0
+# host data and face preprocessing (phases 33-36): MTCNN's nets card vs
+# CPU within 1e-4 of each output's scale (cuDNN's f32 convolutions against
+# the CPU's), boxes and landmarks within 1e-2 pixel through the cascade,
+# aligned crops within one level; the detector's two settings (its
+# default on 250² images; mtcnn_crop_align's on square-padded 1024²
+# photos) and their rate images; the photo tree of phase 34 (drawn faces
+# at 1024 x 768, seeds 0-23: the faces of 11 pass thresholds 0.9 on the
+# CPU with scores of 0.97 and more); the loader trees, the rate batch and
+# the loader-fed steps of phase 36
+MT_NET_TOL, MT_BOX_TOL = 1e-4, 1e-2
+MT_SETTINGS = {
+    "250px_min20": (250, {}),
+    "1024px_padded_min100": (1024, {"min_face_size": 100.0,
+                                    "thresholds": (0.9, 0.9, 0.9),
+                                    "nms_thresholds": (0.9, 0.9, 0.9)})}
+MT_IMAGES, MT_RATE_IMAGES, MT_NET_BATCH = 8, 16, 64
+PHOTO_IDS, PHOTOS_PER_ID = 4, 6
+LOADER_IMAGES, LOADER_BIG, LOADER_BATCH, LOADER_WORKERS = 2048, 256, 256, 8
+RA_IMAGES = 512
+FEED_BACKBONES = ("ResNet_50", "pSp")
+FEED_EPOCH = LOADER_IMAGES // LOADER_BATCH      # steps an epoch: 8
+FEED_STEPS = 2 * FEED_EPOCH
 
 
 def fail(msg: str):
@@ -3475,6 +3533,488 @@ def phase_handoff() -> dict:
     return out
 
 
+# -- host data and face preprocessing (phases 33-36) -------------------------
+
+def draw_faces(seed: int, w: int, h: int, n: int, smin: int, smax: int):
+    """A seeded RGB PIL image of ``n`` drawn faces (hair, neck, eyes,
+    brows, nose, mouth) of heights ~2 x [smin, smax), blurred, with noise:
+    enough of a face for MTCNN's cascade to reach ONet."""
+    from PIL import Image, ImageDraw, ImageFilter
+    r = np.random.RandomState(seed)
+    img = Image.new("RGB", (w, h), tuple(int(x) for x in r.randint(0, 256, 3)))
+    d = ImageDraw.Draw(img)
+    for k in range(n):
+        s = r.randint(smin, smax)
+        cx = (k + 0.5) * w / n + r.randint(-w // (8 * n), w // (8 * n) + 1)
+        cy = h / 2 + r.randint(-h // 10, h // 10 + 1)
+        skin = r.randint(150, 235, 3)
+        skin[2] = min(skin[2], skin[0] - 20)
+        skin = tuple(int(x) for x in skin)
+        dark = tuple(int(x * 0.55) for x in skin)
+        hair = tuple(int(x) for x in r.randint(10, 80, 3))
+        d.ellipse([cx - 0.95 * s, cy - 1.25 * s, cx + 0.95 * s, cy + 0.6 * s],
+                  fill=hair)
+        d.rectangle([cx - 0.35 * s, cy + 0.7 * s, cx + 0.35 * s,
+                     cy + 1.6 * s], fill=dark)
+        d.ellipse([cx - 0.8 * s, cy - s, cx + 0.8 * s, cy + s], fill=skin)
+        for ex in (-0.35, 0.35):
+            d.ellipse([cx + (ex - 0.17) * s, cy - 0.42 * s,
+                       cx + (ex + 0.17) * s, cy - 0.18 * s], fill=dark)
+            d.ellipse([cx + (ex - 0.13) * s, cy - 0.36 * s,
+                       cx + (ex + 0.13) * s, cy - 0.24 * s],
+                      fill=(245, 245, 245))
+            d.ellipse([cx + (ex - 0.06) * s, cy - 0.36 * s,
+                       cx + (ex + 0.06) * s, cy - 0.24 * s],
+                      fill=(30, 20, 20))
+            d.rectangle([cx + (ex - 0.18) * s, cy - 0.55 * s,
+                         cx + (ex + 0.18) * s, cy - 0.48 * s], fill=hair)
+        d.polygon([(cx, cy - 0.2 * s), (cx - 0.12 * s, cy + 0.18 * s),
+                   (cx + 0.12 * s, cy + 0.18 * s)], fill=dark)
+        d.ellipse([cx - 0.3 * s, cy + 0.4 * s, cx + 0.3 * s, cy + 0.56 * s],
+                  fill=(140, 40, 50))
+    arr = np.asarray(img.filter(ImageFilter.GaussianBlur(max(1, smin // 40))),
+                     np.float32) + r.randn(h, w, 3) * 5
+    return Image.fromarray(arr.clip(0, 255).astype(np.uint8))
+
+
+def mtcnn_image(setting: str, seed: int):
+    """A detector input of ``MT_SETTINGS[setting]``: one to three faces
+    at 250², or one face on a 1024 x 768 photo zero-padded to 1024²."""
+    from PIL import Image
+    size, _ = MT_SETTINGS[setting]
+    if size == 250:
+        return draw_faces(seed, 250, 250, 1 + seed % 3, 25, 70)
+    photo = np.asarray(draw_faces(seed, 1024, 768, 1, 150, 300))
+    return Image.fromarray(mtcnn_crop_align.square_pad(photo))
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def cascade_agree(a, b) -> bool:
+    (ba, la), (bb, lb) = a, b
+    return len(ba) == len(bb) and (len(ba) == 0 or (
+        np.abs(np.asarray(ba) - bb).max() <= MT_BOX_TOL
+        and np.abs(np.asarray(la) - lb).max() <= MT_BOX_TOL))
+
+
+def check_no_launch(label: str) -> dict:
+    """The launches since ``reset_launches``, which must all be 0."""
+    got = read_launches()
+    check_launches(label, got, dict.fromkeys(KERNELS, 0))
+    return got
+
+
+def phase_mtcnn() -> dict:
+    """Phase 33: MTCNN on the card against the CPU, detection rates and
+    the device's busy share."""
+    reset_launches()
+    card = mtcnn.MTCNN(device="cuda")
+    cpu = mtcnn.MTCNN(device="cpu")
+    cpu64 = mtcnn.MTCNN(device="cpu")
+    for net in (cpu64.pnet, cpu64.rnet, cpu64.onet):
+        net.double()
+    out = {"nets_rel_err": {}}
+    rng = np.random.RandomState(33)
+    sides = [math.ceil(250 * s) for s in mtcnn.pyramid_scales(250, 250)]
+    for name, shapes in (("pnet", [(1, s, s, 3) for s in sides]),
+                         ("rnet", [(MT_NET_BATCH, 24, 24, 3)]),
+                         ("onet", [(MT_NET_BATCH, 48, 48, 3)])):
+        worst = 0.0
+        for shape in shapes:
+            x = rng.uniform(-1, 1, shape).astype(np.float32)
+            for a, b in zip(card._net(getattr(card, name), x),
+                            cpu._net(getattr(cpu, name), x)):
+                worst = max(worst, rel_err(a, b))
+        out["nets_rel_err"][name] = worst
+        if not worst <= MT_NET_TOL:
+            fail(f"phase 33: {name} card vs CPU {worst:.3e} of scale")
+    faces, worst_box, fallback = 0, 0.0, 0
+    for setting, (_, kw) in MT_SETTINGS.items():
+        for seed in range(MT_IMAGES if setting == "250px_min20" else 2):
+            img = mtcnn_image(setting, seed)
+            got, want = card.detect_faces(img, **kw), cpu.detect_faces(img,
+                                                                       **kw)
+            if cascade_agree(got, want):
+                if len(got[0]):
+                    worst_box = max(worst_box, float(max(
+                        np.abs(np.asarray(got[0]) - want[0]).max(),
+                        np.abs(np.asarray(got[1]) - want[1]).max())))
+            else:
+                exact = cpu64.detect_faces(img, **kw)
+                if not (cascade_agree(got, exact)
+                        or cascade_agree(want, exact)):
+                    fail(f"phase 33: {setting} seed {seed}: card "
+                         f"{len(got[0])} faces, CPU {len(want[0])}, and "
+                         f"neither agrees with float64")
+                fallback += 1
+            faces += len(got[0])
+    if faces == 0:
+        fail("phase 33: no face reached ONet's output")
+    out.update(cascade_faces=faces, cascade_box_err_px=worst_box,
+               cascade_float64_fallbacks=fallback)
+    img = mtcnn_image("250px_min20", 2)
+    _, fc, _ = card.align_multi(img, min_face_size=20.0)
+    _, fu, _ = cpu.align_multi(img, min_face_size=20.0)
+    if not fc or len(fc) != len(fu):
+        fail(f"phase 33: align_multi gave {len(fc)} crops on the card, "
+             f"{len(fu)} on the CPU")
+    d = np.concatenate([np.abs(np.asarray(a, np.int64) - np.asarray(b))
+                        .ravel() for a, b in zip(fc, fu)])
+    out["align_crops"] = {"n": len(fc), "max_levels": int(d.max()),
+                          "share_off": float((d > 0).mean())}
+    if d.max() > 1 or (d > 0).mean() > 0.01:
+        fail(f"phase 33: align_multi crops card vs CPU {out['align_crops']}")
+    out["rates"] = {}
+    # what the cascade did a rate image: PNet calls (pyramid levels), the
+    # candidates RNet and ONet were given
+    seen = dict.fromkeys(("pnet_calls", "rnet_boxes", "onet_boxes"), 0)
+
+    def counter(key, per_box):
+        def hook(module, inputs, output):
+            seen[key] += inputs[0].shape[0] if per_box else 1
+        return hook
+
+    for setting, (_, kw) in MT_SETTINGS.items():
+        imgs = [mtcnn_image(setting, 100 + i) for i in range(MT_RATE_IMAGES)]
+        card.detect_faces(imgs[0], **kw)                   # warm-up
+        hooks = [net.register_forward_hook(counter(key, per_box))
+                 for net, key, per_box in (
+                     (card.pnet, "pnet_calls", False),
+                     (card.rnet, "rnet_boxes", True),
+                     (card.onet, "onet_boxes", True))]
+        seen.update(dict.fromkeys(seen, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(len(card.detect_faces(im, **kw)[0]) for im in imgs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        per_image = {k: v / MT_RATE_IMAGES for k, v in seen.items()}
+        details = {}
+        profile_breakdown(f"phase 33: profile of detect_faces ({setting}) "
+                          f"over 4 images",
+                          lambda: [card.detect_faces(im, **kw)
+                                   for im in imgs[:4]], top=5,
+                          details=details)
+        out["rates"][setting] = {
+            "images_per_s": MT_RATE_IMAGES / dt, "faces": n,
+            "per_image": per_image,
+            "busy_share": details["device_ms"] / details["wall_ms"],
+            "device_ms": details["device_ms"], "wall_ms": details["wall_ms"]}
+        log(f"phase 33: detect_faces {setting}, drawn faces (not photos): "
+            f"{MT_RATE_IMAGES / dt:.1f} images/s ({n} faces in "
+            f"{MT_RATE_IMAGES} images; an image: "
+            f"{per_image['pnet_calls']:.1f} PNet calls, "
+            f"{per_image['rnet_boxes']:.1f} RNet and "
+            f"{per_image['onet_boxes']:.1f} ONet candidates), device busy "
+            f"{out['rates'][setting]['busy_share']:.1%}")
+    out["launches"] = check_no_launch("phase 33")
+    log(f"phase 33: MTCNN card vs CPU: nets {out['nets_rel_err']} of scale "
+        f"(tolerance {MT_NET_TOL:g}); cascade {faces} faces, boxes and "
+        f"landmarks within {worst_box:.2e} px ({fallback} float64 "
+        f"fallbacks); align_multi crops {out['align_crops']}; launches "
+        f"{out['launches']}")
+    return out
+
+
+def phase_data_clis() -> dict:
+    """Phase 34: mtcnn_crop_align -> make_filelist -> pack_train ->
+    pack_rfw on a generated photo tree, rfw_crop_align on one photo's
+    landmarks, then 2 recipe steps of train_stage3 from the shards."""
+    reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        photos = os.path.join(root, "photos")
+        for i in range(PHOTO_IDS):
+            os.makedirs(os.path.join(photos, f"id{i}"))
+            for j in range(PHOTOS_PER_ID):
+                seed = i * PHOTOS_PER_ID + j
+                draw_faces(seed, 1024, 768, 1, 150, 300).save(
+                    os.path.join(photos, f"id{i}", f"{j}.jpg"), quality=95)
+        crops = os.path.join(root, "crops")
+        t0 = time.perf_counter()
+        n = mtcnn_crop_align.main(["--in_dir", photos, "--out_dir", crops,
+                                   "--device", "cuda"])
+        out["crop_align_s"] = time.perf_counter() - t0
+        if n < S3_BATCH:
+            fail(f"phase 34: mtcnn_crop_align aligned {n} faces")
+        listed = make_filelist.main(["--in_dir", crops, "--out_file",
+                                     os.path.join(root, "list.txt")])
+        packed = os.path.join(root, "packed")
+        meta = pack_train.main(["--root", crops, "--out", packed])
+        ids = sorted(os.listdir(crops))
+        if len(listed) != n or meta["n_images"] != n or \
+                meta["id_list"] != ids:
+            fail(f"phase 34: {n} crops, {len(listed)} listed, meta {meta}")
+        # pairs of the crops: each with the next (same identity or not)
+        rel = sorted(os.path.relpath(p, crops) for p in listed)
+        with open(os.path.join(root, "pairs.txt"), "w") as f:
+            for a, b in zip(rel, rel[1:] + rel[:1]):
+                same = a.split(os.sep)[0] == b.split(os.sep)[0]
+                f.write(f"{a} {b} {int(same)}\n")
+        n_pairs = pack_rfw.main(["--pairs", os.path.join(root, "pairs.txt"),
+                                 "--image_root", crops, "--out",
+                                 os.path.join(root, "rfw_African")])
+        # rfw_crop_align from the landmarks of one padded photo (stored
+        # losslessly under a .jpg name, so the crop is written as JPEG as
+        # mtcnn_crop_align writes it) gives that photo's crop
+        from PIL import Image
+        first = rel[0]
+        src = os.path.join(photos, first.split(os.sep)[0],
+                           os.path.basename(first).rsplit("_", 1)[0])
+        padded = mtcnn_crop_align.square_pad(np.asarray(
+            Image.open(src).convert("RGB")))
+        _, lms = mtcnn.MTCNN(device="cuda").detect_faces(
+            Image.fromarray(padded), **MT_SETTINGS["1024px_padded_min100"][1])
+        face = int(os.path.splitext(first)[0].rsplit("_", 1)[1])
+        lm = lms[face]
+        rfw_in = os.path.join(root, "rfw_in")
+        os.makedirs(os.path.join(rfw_in, "a"))
+        Image.fromarray(padded).save(os.path.join(rfw_in, "a", "p.jpg"),
+                                     format="PNG")
+        with open(os.path.join(root, "lmk.txt"), "w") as f:
+            f.write("a/p.jpg 0 " + " ".join(
+                f"{v!r}" for v in np.stack([lm[:5], lm[5:]], 1).ravel()
+                .astype(np.float32).tolist()) + "\n")
+        rfw_crop_align.main(["--in_dir", rfw_in, "--lmk_file",
+                             os.path.join(root, "lmk.txt"), "--out_dir",
+                             os.path.join(root, "rfw_out"), "--device",
+                             "cuda"])
+        pair = [os.path.join(root, "rfw_out", "a", "p.jpg"),
+                os.path.join(crops, first)]
+        a, b = (np.asarray(Image.open(p), np.int64) for p in pair)
+        with open(pair[0], "rb") as fa, open(pair[1], "rb") as fb:
+            out["rfw_crop_bytes_equal"] = fa.read() == fb.read()
+        lv = out["rfw_crop_mean_levels"] = float(np.abs(a - b).mean())
+        if lv > 1.0:
+            fail(f"phase 34: rfw_crop_align's crop is {lv} levels from "
+                 f"mtcnn_crop_align's on average")
+        cfg = dict(json.load(open(STAGE3_CONFIG)), data_root=root,
+                   train_subdir="packed", model_root=os.path.join(root, "runs"),
+                   name="from_photos", batch_size=S3_BATCH,
+                   eval_benchmarks=["rfw_African"])
+        with open(os.path.join(root, "cfg.json"), "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        train_stage3.main(["--config", os.path.join(root, "cfg.json"),
+                           "--packed_dir", packed, "--max_steps", "2",
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        run = os.path.join(root, "runs", "from_photos")
+        ckpts = sorted(f for f in os.listdir(run) if f.startswith("step_"))
+        with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        acc = [r["rfw_African_Accuracy"] for r in rows
+               if "rfw_African_Accuracy" in r]
+        ck = torch.load(os.path.join(run, ckpts[-1]), map_location="cpu",
+                        weights_only=True)["backbone"]
+        if not ckpts or not acc or not all(
+                torch.isfinite(v).all() for v in ck.values()
+                if v.is_floating_point()):
+            fail(f"phase 34: checkpoints {ckpts}, verification {acc}")
+    out.update(photos=PHOTO_IDS * PHOTOS_PER_ID, crops=n, pairs=n_pairs,
+               shards=meta["n_shards"], rfw_accuracy=acc,
+               launches=check_no_launch("phase 34"))
+    log(f"phase 34: {out['photos']} photos -> {n} aligned crops in "
+        f"{out['crop_align_s']:.1f} s -> filelist -> {meta['n_shards']} "
+        f"shard(s) -> {n_pairs} packed pairs; rfw_crop_align's crop "
+        f"{lv:.3f} levels from mtcnn_crop_align's on average (bytes equal: "
+        f"{out['rfw_crop_bytes_equal']}); train_stage3 2 steps in "
+        f"{out['train_s']:.1f} s, verification accuracy {acc}; launches "
+        f"{out['launches']}")
+    return out
+
+
+def loader_rate(make, epochs: int = 1) -> float:
+    """images/s of ``make()``'s loader over ``epochs`` epochs (the first
+    batch's wait included)."""
+    loader = make()
+    n = 0
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        for x, _ in loader:
+            n += len(x)
+    return n / (time.perf_counter() - t0)
+
+
+def write_jpegs(root: str, n: int, side: int, seed: int):
+    """``n`` seeded JPEGs (quality 95) of ``side``² under 8 identity
+    folders: a smooth colour field plus noise, each image its own shift of
+    both and its own tint."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:2 * side, 0:2 * side] / side
+    base = np.stack([np.sin(4 * xx), np.cos(3 * yy), np.sin(5 * xx * yy)],
+                    -1) * 90 + 128
+    noise = rng.randint(-20, 21, (2 * side, 2 * side, 3))
+    for i in range(n):
+        d = os.path.join(root, f"id{i % 8}")
+        os.makedirs(d, exist_ok=True)
+        oy, ox, ny, nx = rng.randint(0, side, 4)
+        arr = base[oy:oy + side, ox:ox + side] \
+            + noise[ny:ny + side, nx:nx + side] + rng.randint(-30, 31, 3)
+        Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(
+            os.path.join(d, f"{i}.jpg"), quality=95)
+
+
+def phase_loaders(root: str) -> dict:
+    """Phase 35: which C++ loader was built, its batches against the
+    Python loader's, and every loader's images/s. Leaves the packed shards
+    of the 112² tree at ``root/packed`` for phase 36."""
+    reset_launches()
+    status = native_loader.status()
+    log(f"native_loader: {status}")
+    out = {"native_loader": status, "images_per_s": {}}
+    rates = out["images_per_s"]
+    small, big = os.path.join(root, "jpg112"), os.path.join(root, "jpg512")
+    t0 = time.perf_counter()
+    write_jpegs(small, LOADER_IMAGES, 112, seed=35)
+    write_jpegs(big, LOADER_BIG, 512, seed=36)
+    out["write_s"] = time.perf_counter() - t0
+    kw = dict(num_workers=LOADER_WORKERS, drop_last=False)
+    if status.startswith("built"):
+        from PIL import Image
+        png = os.path.join(root, "png128")
+        rng = np.random.RandomState(37)
+        for i in range(64):
+            os.makedirs(os.path.join(png, f"id{i % 4}"), exist_ok=True)
+            Image.fromarray(rng.randint(0, 256, (128, 128, 3), np.uint8)) \
+                .save(os.path.join(png, f"id{i % 4}", f"{i}.png"))
+        for path, tol in ((png, 0.0), (small, 1.1 / 255 * 2)):
+            ds = FacesDataset(path, 128)
+            a, la = next(iter(native_loader.NativeDataLoader(
+                ds, len(ds) if path == png else 64, shuffle=False, **kw)))
+            b = np.stack([ds.load(i)[0] for i in range(len(a))])
+            err = float(np.abs(a - b).max())
+            out[f"native_vs_python_{os.path.basename(path)}"] = err
+            if err > tol or not np.array_equal(
+                    la, [ds.label_of(i) for i in range(len(a))]):
+                fail(f"phase 35: native vs Python loader on "
+                     f"{os.path.basename(path)}: {err} (tolerance {tol})")
+        for name, path, fast in (("native_112_to_128", small, False),
+                                 ("native_512_to_128", big, False),
+                                 ("native_512_to_128_fast_decode", big,
+                                  True)):
+            ds = FacesDataset(path, 128)
+            rates[name] = loader_rate(lambda: native_loader.NativeDataLoader(
+                ds, LOADER_BATCH, fast_decode=fast, **kw))
+    else:
+        for name in ("native_112_to_128", "native_512_to_128",
+                     "native_512_to_128_fast_decode"):
+            rates[name] = None
+    for name, path in (("python_112_to_128", small),
+                       ("python_512_to_128", big)):
+        ds = FacesDataset(path, 128)
+        rates[name] = loader_rate(lambda: DataLoader(ds, LOADER_BATCH, **kw))
+    aug = RandAugment(num_ops=2, seed=35)
+    at_112 = FacesDataset(small, 112)
+    imgs = [np.rint(at_112.load(i)[0] * 127.5 + 127.5).astype(np.uint8)
+            for i in range(RA_IMAGES)]
+    t0 = time.perf_counter()
+    for im in imgs:
+        aug(im)
+    rates["randaugment_2ops_one_thread"] = RA_IMAGES / (
+        time.perf_counter() - t0)
+    ds = FacesDataset(small, 128, transform=aug)
+    rates["python_randaugment_112_to_128"] = loader_rate(
+        lambda: DataLoader(ds, LOADER_BATCH, **kw))
+    packed = os.path.join(root, "packed")
+    t0 = time.perf_counter()
+    pack_dataset(FacesDataset(small, 128), packed, num_workers=LOADER_WORKERS,
+                 progress=False)
+    rates["pack_dataset_112_to_128"] = LOADER_IMAGES / (
+        time.perf_counter() - t0)
+    pds = PackedTrainDataset(packed)
+    rates["packed"] = loader_rate(lambda: PackedLoader(pds, LOADER_BATCH),
+                                  epochs=3)
+
+    def prefetched():
+        n = 0
+        for x, _ in device_prefetch(PackedLoader(pds, LOADER_BATCH)):
+            n += len(x)
+        torch.cuda.synchronize()
+        return n
+
+    prefetched()                                          # warm-up
+    t0 = time.perf_counter()
+    n = sum(prefetched() for _ in range(3))
+    rates["packed_device_prefetch"] = n / (time.perf_counter() - t0)
+    out["launches"] = check_no_launch("phase 35")
+    for k, v in rates.items():
+        log(f"phase 35: {k}: " + ("not measured (the C++ loader is "
+                                  "unavailable)" if v is None
+                                  else f"{v:.1f} images/s"))
+    return out
+
+
+def phase_loader_feed(packed: str) -> dict:
+    """Phase 36: bf16 batch-256 stage-3 steps fed by PackedLoader +
+    device_prefetch against the same steps on a resident batch. The
+    shards were just written, so they sit in the page cache; the timed
+    steps span two epochs and the profiled ones one, each with the
+    epoch restarts its share of steps brings."""
+    reset_launches()
+    pds = PackedTrainDataset(packed)
+    out = {}
+
+    def batches():
+        while True:
+            yield from device_prefetch(PackedLoader(pds, LOADER_BATCH))
+
+    for name in FEED_BACKBONES:
+        tr = stage3_trainer("cuda", "bfloat16", backbone=name)
+        x, y = (t.cuda() for t in stage3_inputs(LOADER_BATCH, seed=36))
+        feed = batches()
+        row = {}
+        for kind, take in (("resident", lambda: (x, y)),
+                           ("loader_fed", lambda: next(feed))):
+            tr.train_step(*take(), 0)                            # warm-up
+            torch.cuda.synchronize()
+            wait = 0.0          # host seconds spent getting the batches
+            t0 = time.perf_counter()
+            for i in range(FEED_STEPS):
+                tw = time.perf_counter()
+                batch = take()
+                wait += time.perf_counter() - tw
+                m = tr.train_step(*batch, i)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / FEED_STEPS
+            if not math.isfinite(m["loss"].item()):
+                fail(f"phase 36: {name} {kind}: loss {m['loss'].item()}")
+            details = {}
+
+            def steps():
+                for i in range(FEED_EPOCH):
+                    tr.train_step(*take(), i)
+
+            profile_breakdown(f"phase 36: profile of {FEED_EPOCH} {kind} "
+                              f"{name} bf16 batch-{LOADER_BATCH} steps",
+                              steps, top=4, details=details)
+            row[kind] = {"step_ms": dt * 1e3,
+                         "images_per_s": LOADER_BATCH / dt,
+                         "host_wait_ms": wait * 1e3 / FEED_STEPS,
+                         "idle_share": 1 - details["device_ms"]
+                         / details["wall_ms"]}
+        out[name] = row
+        log(f"phase 36: {name} bf16 batch {LOADER_BATCH}, {LOADER_IMAGES} "
+            f"page-cached images, {FEED_STEPS} steps: resident "
+            f"{row['resident']['step_ms']:.1f} ms a step (idle "
+            f"{row['resident']['idle_share']:.1%}), loader-fed "
+            f"{row['loader_fed']['step_ms']:.1f} ms (idle "
+            f"{row['loader_fed']['idle_share']:.1%}; the host waited "
+            f"{row['loader_fed']['host_wait_ms']:.2f} ms a step for its "
+            f"batch)")
+        del tr, feed
+        torch.cuda.empty_cache()
+    out["launches"] = check_no_launch("phase 36")
+    return out
+
+
 def zoo_launches(zoo: dict) -> dict:
     """B1/B1b/B2/B2b launches summed over phases 28-32's recorded counts."""
     found = []
@@ -3606,6 +4146,10 @@ def main():
     zoo["heads_extra"] = phase_heads_extra()
     zoo["rb_webface"] = phase_rb_webface(zoo["ResNet_50"].pop("checkpoint"))
     zoo["handoff"] = phase_handoff()
+    host = {"mtcnn": phase_mtcnn(), "clis": phase_data_clis()}
+    with tempfile.TemporaryDirectory() as root:
+        host["loaders"] = phase_loaders(root)
+        host["feed"] = phase_loader_feed(os.path.join(root, "packed"))
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -3633,6 +4177,9 @@ def main():
                 name],
             # phases 28-32: each checked to be 0
             "launches_stage3_zoo": zoo_launches(zoo)[name],
+            # phases 33-36: each checked to be 0
+            "launches_host_data": sum(v["launches"][name]
+                                      for v in host.values()),
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -3647,6 +4194,7 @@ def main():
     print(json.dumps({"e4e": e4e}))
     print(json.dumps({"generators_fid_eval": gens}))
     print(json.dumps({"stage3_zoo": zoo}))
+    print(json.dumps({"host_data": host}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
 from .dataset import DataLoader, FacesDataset
 from .images_dataset import (GTResDataset, ImagesDataset, InferenceDataset,
                              list_images)
+from .native_loader import NativeDataLoader, make_loader
 from .packed import (PackedLoader, PackedTrainDataset, device_prefetch,
-                     is_packed_dir, write_packed)
+                     is_packed_dir, pack_dataset, save_packed_meta,
+                     write_packed)
+from .randaugment import RandAugment
 
 __all__ = ["DataLoader", "FacesDataset", "GTResDataset", "ImagesDataset",
-           "InferenceDataset",
-           "PackedLoader", "PackedTrainDataset", "device_prefetch",
-           "is_packed_dir", "list_images", "write_packed"]
+           "InferenceDataset", "NativeDataLoader", "make_loader",
+           "PackedLoader", "PackedTrainDataset", "RandAugment",
+           "device_prefetch", "is_packed_dir", "list_images", "pack_dataset",
+           "save_packed_meta", "write_packed"]

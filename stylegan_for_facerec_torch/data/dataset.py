@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 from glob import glob
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,13 +31,20 @@ def _strip_ethnicity(identity: str) -> str:
 
 
 class FacesDataset:
-    """Identity-labeled image-folder dataset."""
+    """Identity-labeled image-folder dataset. ``transform``, when given,
+    maps each decoded uint8 RGB array (H, W, 3) to another before the
+    resize (``data.randaugment.RandAugment``); ``make_loader`` then takes
+    the Python loader."""
 
-    def __init__(self, root: str, image_size: int = 128):
+    def __init__(self, root: str, image_size: int = 128,
+                 extensions: Sequence[str] = EXTENSIONS,
+                 transform: Optional[Callable[[np.ndarray],
+                                              np.ndarray]] = None):
         self.root = root
         self.image_size = image_size
+        self.transform = transform
         self.filenames: List[str] = sorted(
-            fn for ext in EXTENSIONS
+            fn for ext in extensions
             for fn in glob(os.path.join(root, "*", f"*{ext}")))
         ids = sorted({_strip_ethnicity(fn.split(os.sep)[-2])
                       for fn in self.filenames})
@@ -59,6 +66,9 @@ class FacesDataset:
         s = self.image_size
         try:
             img = Image.open(self.filenames[idx]).convert("RGB")
+            if self.transform is not None:
+                img = Image.fromarray(np.asarray(
+                    self.transform(np.asarray(img, np.uint8)), np.uint8))
             # both sides resized exactly, aspect-distorting, as
             # Resize([128, 128]) does
             arr = np.asarray(img.resize((s, s), Image.BILINEAR),

@@ -7,7 +7,9 @@ the JAX package's, so either package reads what the other wrote:
   <dir>/shard-00000.npy             uint8 (n, S, S, 3) NHWC
   <dir>/labels.npy                  int32 (N,)
 
-Shards are memory-mapped; the trainer maps uint8 to [-1, 1] on the card.
+``pack_dataset`` decodes an image tree once (through ``make_loader``: the
+C++ loader where it can) into shards. Shards are memory-mapped; the
+trainer maps uint8 to [-1, 1] on the card.
 ``PackedLoader`` gives the JAX ``PackedLoader``'s batches for the same
 seed and epoch. ``device_prefetch`` copies batch k + 1 from pinned host
 memory on a side CUDA stream while the card runs batch k.
@@ -29,6 +31,16 @@ from ..utils.device import resolve_device
 META_NAME = "packed_meta.json"
 
 
+def save_packed_meta(out_dir: str, image_size: int, n_images: int,
+                     shard_size: int, n_shards: int, id_list) -> dict:
+    meta = {"image_size": image_size, "n_images": n_images,
+            "shard_size": shard_size, "n_shards": n_shards,
+            "id_list": list(id_list)}
+    with open(os.path.join(out_dir, META_NAME), "w") as f:
+        json.dump(meta, f)
+    return meta
+
+
 def write_packed(out_dir: str, images: np.ndarray, labels: np.ndarray,
                  id_list, shard_size: int = 8192) -> dict:
     """Write uint8 NHWC ``images`` and integer labels as a packed
@@ -45,12 +57,8 @@ def write_packed(out_dir: str, images: np.ndarray, labels: np.ndarray,
                 images[i * shard_size: (i + 1) * shard_size])
     np.save(os.path.join(out_dir, "labels.npy"),
             np.asarray(labels, np.int32))
-    meta = {"image_size": images.shape[1], "n_images": n,
-            "shard_size": shard_size, "n_shards": n_shards,
-            "id_list": list(id_list)}
-    with open(os.path.join(out_dir, META_NAME), "w") as f:
-        json.dump(meta, f)
-    return meta
+    return save_packed_meta(out_dir, images.shape[1], n, shard_size,
+                            n_shards, id_list)
 
 
 def _pumped(make_items, maxsize: int, err_msg: str):
@@ -96,6 +104,54 @@ def _pumped(make_items, maxsize: int, err_msg: str):
             yield item
     finally:
         abandoned.set()
+
+
+def pack_dataset(dataset, out_dir: str, shard_size: int = 8192,
+                 num_workers: int = 8, batch_size: int = 256,
+                 progress: bool = True) -> dict:
+    """Decode every image of ``dataset`` (a ``FacesDataset``) once, in
+    order, and write it as uint8 shards with its labels and metadata;
+    returns the metadata."""
+    from .native_loader import make_loader
+    os.makedirs(out_dir, exist_ok=True)
+    n, s = len(dataset), dataset.image_size
+    loader = make_loader(dataset, batch_size, shuffle=False,
+                         num_workers=num_workers, drop_last=False)
+    labels_out = np.empty((n,), np.int32)
+    shard = np.empty((shard_size, s, s, 3), np.uint8)
+    written = fill = shard_idx = 0      # in finished shards, in ``shard``
+
+    def flush():
+        nonlocal shard_idx, written, fill
+        if fill == 0:
+            return
+        np.save(os.path.join(out_dir, f"shard-{shard_idx:05d}.npy"),
+                shard[:fill])
+        shard_idx += 1
+        written += fill
+        fill = 0
+
+    for images, labels in loader:
+        # the loaders give u / 127.5 - 1: inverted exactly
+        u8 = np.rint((images + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+        b = len(labels)
+        labels_out[written + fill: written + fill + b] = labels
+        off = 0
+        while off < b:
+            take = min(shard_size - fill, b - off)
+            shard[fill: fill + take] = u8[off: off + take]
+            fill += take
+            off += take
+            if fill == shard_size:
+                flush()
+        if progress and shard_idx % 8 == 0:
+            print(f"[pack] {written + fill}/{n} images", flush=True)
+    flush()
+    if written != n:
+        raise RuntimeError(f"packed {written} of {n} images")
+    np.save(os.path.join(out_dir, "labels.npy"), labels_out)
+    return save_packed_meta(out_dir, s, n, shard_size, shard_idx,
+                            dataset.id_list)
 
 
 def is_packed_dir(path: str) -> bool:

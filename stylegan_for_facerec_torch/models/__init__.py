@@ -1,5 +1,5 @@
 from . import (attention, efficientnet, gac, ghostnet, heads_extra,
-               mobilefacenet, resnet)
+               mobilefacenet, mtcnn, resnet)
 from .attention import AttentionNet_56, AttentionNet_92, ResidualAttentionNet
 from .efficientnet import EfficientNet, EfficientNetB0
 from .ghostnet import GhostNet
@@ -8,6 +8,7 @@ from .inception import InceptionV3
 from .irse import (IR_50, IR_101, IR_152, IR_SE_50, IR_SE_101, IR_SE_152,
                    Backbone, l2_norm)
 from .mobilefacenet import MobileFaceNet
+from .mtcnn import MTCNN
 from .resnet import ResNet, ResNet_50, ResNet_101, ResNet_152
 from .e4e import (E4e, LatentCodesDiscriminator, LatentCodesPool,
                   ProgressiveBackboneEncoder)
@@ -21,7 +22,7 @@ from .stylegan2_ada import (FullyConnectedLayer, Generator, MappingNetwork,
                             SynthesisNetwork)
 
 __all__ = ["attention", "efficientnet", "gac", "ghostnet", "heads_extra",
-           "mobilefacenet", "resnet", "AttentionNet_56", "AttentionNet_92",
+           "mobilefacenet", "mtcnn", "resnet", "MTCNN", "AttentionNet_56", "AttentionNet_92",
            "EfficientNet", "EfficientNetB0", "GhostNet", "MobileFaceNet",
            "ResNet", "ResNet_50", "ResNet_101", "ResNet_152",
            "ResidualAttentionNet", "Backbone", "BackboneEncoder", "BackboneEncoderDiffHead",

@@ -4,6 +4,7 @@
         --config configs/stage3_bupt_ir50.json \\
         [--encoder_checkpoint runs/s2/step_000100000.pt] [--avg_image a.npy] \\
         [--packed_dir shards/] [--max_steps N] [--resume] \\
+        [--randaugment N_OPS] [--fast_decode] \\
         [--compute_dtype bfloat16|float32] [--remat] [--device cuda|cpu]
 
 The JAX package's ``tools/train_stage3.py`` on one GPU (the card unless
@@ -25,8 +26,11 @@ file is a stage-2 checkpoint of this package or a reference torch ``.pt``
 unless ``--avg_image`` or the config names one (.npy (H, W, 3) in
 [-1, 1], or an image file). Images come from ``--packed_dir`` (or a packed
 ``data_root/train_subdir``) as uint8 shards, else from the image tree
-through the threaded loader; the crop to the input size and the flip run
-in the train step. After each epoch every ``eval_benchmarks`` set found
+through ``make_loader`` (the C++ loader where it can take the tree, with
+``--fast_decode`` its DCT-scaled JPEG decode; the Python loader with
+``--randaugment``, whose N operations an image run on the host and which
+packed shards refuse); the crop to the input size and the flip run in the
+train step. After each epoch every ``eval_benchmarks`` set found
 as ``data_root/<name>.npz`` is verified and a checkpoint is written under
 ``model_root/name``; SIGTERM/SIGINT save mid-epoch, and ``--resume``
 continues from the newest checkpoint (a preempted epoch replays its
@@ -67,6 +71,13 @@ def _parse(argv):
                     "stage-2 checkpoint's)")
     ap.add_argument("--no_prefetch", action="store_true",
                     help="copy each batch to the card when it is used")
+    ap.add_argument("--randaugment", type=int, default=0, metavar="N_OPS",
+                    help="host RandAugment with N_OPS operations an image "
+                    "(the Python loader; not on packed shards)")
+    ap.add_argument("--fast_decode", action="store_true",
+                    help="the C++ loader decodes large JPEGs at the coarsest "
+                    "1/2^k DCT scale covering the image size; pixels differ "
+                    "slightly from a full decode")
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--remat", action="store_true",
@@ -145,7 +156,8 @@ def _avg_image(path: str) -> torch.Tensor:
 def main(argv=None):
     args = _parse(argv)
 
-    from ..data.dataset import DataLoader, FacesDataset
+    from ..data.dataset import FacesDataset
+    from ..data.native_loader import make_loader
     from ..data.packed import (PackedLoader, PackedTrainDataset,
                                is_packed_dir)
     from ..models.psp import PSpFaceRec
@@ -160,6 +172,9 @@ def main(argv=None):
     if packed_dir is None and is_packed_dir(train_root):
         packed_dir = train_root
     if packed_dir is not None:
+        if args.randaugment > 0:
+            raise SystemExit("--randaugment needs the decoding loader; it "
+                             "cannot run on packed uint8 shards")
         ds = PackedTrainDataset(packed_dir)
         if ds.image_size < opts.input_size[0]:
             raise SystemExit(f"packed shards are {ds.image_size} px, below "
@@ -171,12 +186,19 @@ def main(argv=None):
         # resize scaled with the input size (128 for 112), then the crop
         ds_size = max(opts.input_size[0],
                       round(128 * opts.input_size[0] / 112))
-        ds = FacesDataset(train_root, image_size=ds_size)
-        loader = DataLoader(ds, opts.batch_size,
-                            num_workers=opts.num_workers,
-                            drop_last=opts.drop_last)
+        transform = None
+        if args.randaugment > 0:
+            from ..data.randaugment import RandAugment
+            transform = RandAugment(num_ops=args.randaugment)
+            print(f"[data] RandAugment({args.randaugment} ops)")
+        ds = FacesDataset(train_root, image_size=ds_size, transform=transform)
+        loader = make_loader(ds, opts.batch_size,
+                             num_workers=opts.num_workers,
+                             drop_last=opts.drop_last,
+                             fast_decode=args.fast_decode)
         print(f"[data] {len(ds)} images, {ds.n_identities} identities "
-              f"(resize {ds_size} -> crop {opts.input_size[0]})")
+              f"(resize {ds_size} -> crop {opts.input_size[0]}) through "
+              f"{type(loader).__name__}")
     if len(ds) == 0 or ds.n_identities == 0:
         raise SystemExit(f"no training images found under {train_root}")
     steps_per_epoch = len(loader)

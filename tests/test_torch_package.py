@@ -31,16 +31,22 @@ STAGE3_MODULES = (
     "tools.test_rfw", "tools.train_stage3", "utils.config",
     "models.e4e", "models.resnet", "train.stage2_e4e",
     "tools.train_stage2_e4e", "models.inception",
-    "tools.calc_losses_on_images")
+    "tools.calc_losses_on_images",
+    # the host data path and face preprocessing, which import no cv2
+    "data.registry", "data.randaugment", "data.native_loader",
+    "models.mtcnn", "tools.make_filelist", "tools.pack_train",
+    "tools.pack_rfw", "tools.mtcnn_crop_align", "tools.rfw_crop_align")
 
 
 def test_port_imports_no_jax():
     """Every port module, and chip_smoke.py, import with jax blocked and
     load nothing of the JAX package; the walk covers the stage-3, e4e,
-    InceptionV3 and loss-evaluation modules."""
+    InceptionV3, loss-evaluation, host data and MTCNN modules, and none of
+    them imports cv2."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["cv2"] = None
         import stylegan_for_facerec_torch as pkg
         walked = set()
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -48,7 +54,7 @@ def test_port_imports_no_jax():
             walked.add(m.name)
         import chip_smoke
         bad = [m for m in sys.modules
-               if m.startswith(("stylegan_for_facerec_tpu", "jax"))
+               if m.startswith(("stylegan_for_facerec_tpu", "jax", "cv2"))
                and sys.modules[m] is not None]
         assert not bad, bad
         missing = [m for m in %r

@@ -22,7 +22,8 @@ import pytest
 import torch
 from PIL import Image
 
-from stylegan_for_facerec_torch.data.dataset import DataLoader, FacesDataset
+from stylegan_for_facerec_torch.data.dataset import FacesDataset
+from stylegan_for_facerec_torch.data.native_loader import make_loader
 from stylegan_for_facerec_torch.models.psp import PSp
 from stylegan_for_facerec_torch.tools import test_rfw, train_stage3
 from stylegan_for_facerec_torch.train.stage3 import Stage3Trainer
@@ -159,9 +160,10 @@ def test_preempted_epoch_replays_its_permutation(setup, monkeypatch, capsys):
                         lambda *a: threading.Event())
     train_stage3.main(_args(cfg, "--resume", "--max_steps", "3"))
     assert "replaying loader permutation 0" in capsys.readouterr().out
-    # the epoch's three batches, each once, in the loader's order
+    # the epoch's three batches, each once, in the order of the loader the
+    # CLI takes (make_loader's)
     want = [y.tolist() for _, y in
-            DataLoader(FacesDataset(str(root / "faces")), 2, seed=0)]
+            make_loader(FacesDataset(str(root / "faces")), 2, seed=0)]
     assert seen == want
     final = torch.load(run / "step_000000003.pt", weights_only=True)
     assert final["metadata"] == {"epoch": 0, "step": 3}
