@@ -215,12 +215,35 @@ Phases, each fatal on failure (nonzero exit, no result line):
      same steps on a resident batch: ms a step over two epochs (two epoch
      restarts), the host's wait for a batch, and the device's idle share
      over one epoch's steps.
-Phases 28-36 launch none of B1, B1b, B2 or B2b.
+ 37. the int8 embedder: the recipe's PSpFaceRec (IR-SE-50 at 112, seeded
+     weights and BatchNorm statistics) calibrated on 4 batches of 8 and
+     stripped (the weight bytes, the f32 model's torch.cuda.
+     memory_allocated and what stripping frees of it), embed images/s at batch 256 through make_embed_fn (centre
+     crop, TTA) in int8, bf16 and f32, the cosine of the int8 to the f32
+     embeddings, the int32 accumulators of the stem conv, a body conv and
+     the output linear card vs CPU on the same int8 codes (equal), no
+     B1/B1b/B2/B2b launch;
+ 38. int8 ReStyle inversion on phase 3's PSp(256): calibrate_with over
+     run_on_batch, the int8 loop at batch 8 for 5 iterations launching
+     B1/B2 as often as the f32 loop (65/60), the image error against f32,
+     ms an iteration int8 and f32;
+ 39. the same PSpFaceRec exported (torch.export, symbolic batch) in f32
+     and bf16, saved, loaded and run at batch 8 and 256 against eager
+     (1e-5 / 1e-2 of scale), export seconds, ms exported and eager, no
+     launch;
+ 40. a seeded StyleGAN2-ADA G at 256² through tools/export_model.py from
+     a torch ADA .pt: the loaded graph holds the sgfr::bias_act and
+     sgfr::smooth_upsample nodes, its output at batch 8 equals eager's bit
+     for bit, and B1/B2 launch as often as eager's; then the host µs a B1
+     call takes through the custom op and through its CUDA implementation
+     called directly (launches counted, not part of any path).
+Phases 28-37 and 39 launch none of B1, B1b, B2 or B2b.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
 as nvidia-smi reports them, and the ones before that the stage-1, stage-3,
-e4e, phase 24-27 ("generators_fid_eval"), phase 28-32 ("stage3_zoo") and
-phase 33-36 ("host_data") numbers as JSON. Exits nonzero without a GPU.
+e4e, phase 24-27 ("generators_fid_eval"), phase 28-32 ("stage3_zoo"),
+phase 33-36 ("host_data") and phase 37-40 ("serving") numbers as JSON.
+Exits nonzero without a GPU.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -288,12 +311,12 @@ from stylegan_for_facerec_torch.models.stylegan2_ada import (
     EqualizedConv2d, FullyConnectedLayer, Generator, channels_for)
 from stylegan_for_facerec_torch.models import mtcnn
 from stylegan_for_facerec_torch.tools import (calc_losses_on_images,
-                                              make_filelist,
+                                              export_model, make_filelist,
                                               mtcnn_crop_align, pack_rfw,
                                               pack_train, rfw_crop_align,
                                               test_rb_webface, train_stage3)
 from stylegan_for_facerec_torch.nn.initializers import init_weights
-from stylegan_for_facerec_torch.ops import build, resample
+from stylegan_for_facerec_torch.ops import build, fused_act, resample
 from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
                                                       bias_act_grad_plain,
                                                       bias_act_plain)
@@ -307,6 +330,8 @@ from stylegan_for_facerec_torch.train.stage2 import Stage2Coach, Stage2Config
 from stylegan_for_facerec_torch.train.stage2_e4e import E4eCoach, E4eConfig
 from stylegan_for_facerec_torch.train.stage3 import (Stage3Config,
                                                      Stage3Trainer)
+from stylegan_for_facerec_torch.utils import export as export_utils
+from stylegan_for_facerec_torch.utils import quantize
 from stylegan_for_facerec_torch.utils.checkpoint import load_stage2_encoder
 from stylegan_for_facerec_torch.utils.config import (Stage1Config,
                                                     Stage3Options,
@@ -4015,6 +4040,360 @@ def phase_loader_feed(packed: str) -> dict:
     return out
 
 
+# -- int8 serving and export (phases 37-40) ---------------------------------
+
+SERVE_BATCH, SERVE_CALIB_BATCHES, SERVE_REPS = 256, 4, 5
+# exported vs eager: the same operations on the same card; f32 within
+# 1e-5 and bf16 within 1e-2 of the output's scale (cuDNN may pick another
+# algorithm for a graph than for eager calls)
+EXPORT_TOL = {"f32": 1e-5, "bf16": 1e-2}
+EXPORT_BATCHES = (8, SERVE_BATCH)
+GEN_EXPORT_SIZE, GEN_EXPORT_BATCH = 256, 8
+
+
+def serving_embedder(seed: int = 37):
+    """The recipe's PSpFaceRec (IR-SE-50 at 112, emb 512), seeded weights
+    and BatchNorm statistics, eval mode, on the card."""
+    model = PSpFaceRec(size=INPUT_SIZE)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    seeded_batchnorm_(model, seed + 1)
+    return model.eval().cuda()
+
+
+def param_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def embed_rate(fn, images: torch.Tensor) -> float:
+    """images/s of ``fn`` (a make_embed_fn) on one resident batch: host
+    clock around SERVE_REPS calls that end in a synchronize, after a
+    warm-up call."""
+    fn(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_REPS):
+        fn(images)
+    torch.cuda.synchronize()
+    return SERVE_REPS * images.shape[0] / (time.perf_counter() - t0)
+
+
+def int8_accumulators_vs_cpu(table, x) -> dict:
+    """Card and CPU int32 accumulators of the stem conv (K = 54: the image
+    and the average image), a body conv and the output linear on the same
+    int8 codes: exactly equal."""
+    out = {}
+    w = table.entries[0]["w"]
+    # the stem's input: the image beside the backbone's average image
+    xq, _ = quantize.quantize_act(
+        torch.cat([x, torch.zeros_like(x)[:, :w.shape[1] - x.shape[1]]], 1),
+        table.entries[0]["x_absmax"])
+    card = quantize.int8_conv2d(xq, w, 1, 1)
+    cpu = quantize.int8_conv2d(xq.cpu(), w.cpu(), 1, 1)
+    if not torch.equal(card.cpu(), cpu):
+        fail("phase 37: the stem conv's int32 accumulators differ card vs "
+             "CPU")
+    out["stem_conv"] = list(card.shape)
+    body = next(i for i, (k, e) in enumerate(zip(table.kinds, table.entries))
+                if k == "conv2d" and e["w"].shape[1:] == (64, 3, 3))
+    g = torch.Generator().manual_seed(38)
+    xb = torch.randint(-127, 128, (x.shape[0], 64, 56, 56), generator=g,
+                       dtype=torch.int8)
+    wb = table.entries[body]["w"]
+    card = quantize.int8_conv2d(xb.cuda(), wb, 1, 1)
+    if not torch.equal(card.cpu(), quantize.int8_conv2d(xb, wb.cpu(), 1, 1)):
+        fail(f"phase 37: conv entry {body}'s int32 accumulators differ card "
+             f"vs CPU")
+    out[f"conv_entry_{body}"] = list(card.shape)
+    lin = table.kinds.index("linear")
+    wl = table.entries[lin]["w"]
+    xl = torch.randint(-127, 128, (x.shape[0], wl.shape[1]), generator=g,
+                       dtype=torch.int8)
+    card = quantize.int8_matmul(xl.cuda(), wl.t())
+    if not torch.equal(card.cpu(), quantize.int8_matmul(xl, wl.cpu().t())):
+        fail("phase 37: the output linear's int32 accumulators differ card "
+             "vs CPU")
+    out["linear"] = list(card.shape)
+    return out
+
+
+def phase_int8_embed() -> dict:
+    """Phase 37: the calibrated int8 embedder. Calibration on
+    SERVE_CALIB_BATCHES batches of 8 of phase 14's images, the stripped
+    copy's bytes, int8/bf16/f32 embed images/s at SERVE_BATCH through
+    make_embed_fn (centre crop, TTA), the cosine of int8 to f32
+    embeddings, int32 accumulators card vs CPU, no B1/B1b/B2/B2b
+    launch."""
+    images, _ = verification_pairs(SERVE_BATCH // 2, seed=37)
+    x = torch.from_numpy(images).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = serving_embedder()
+    torch.cuda.synchronize()
+    f32_bytes = torch.cuda.memory_allocated() - base
+    reset_launches()
+    calib = x[:8 * SERVE_CALIB_BATCHES].permute(0, 3, 1, 2)
+    t0 = time.perf_counter()
+    table = quantize.calibrate_and_quantize(
+        model, [calib[i:i + 8] for i in range(0, calib.shape[0], 8)])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    rates, embs = {}, {}
+    for dname, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
+        fn = make_embed_fn(model, device="cuda", compute_dtype=cdt)
+        rates[dname] = embed_rate(fn, x)
+        embs[dname] = fn(x).float()
+    f32_param_bytes = param_bytes(model)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    lean = quantize.strip_quantized_weights(model, table)
+    del model, fn      # fn holds the f32 model too
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    fn8 = make_embed_fn(lean, device="cuda", int8_table=table)
+    rates["int8"] = embed_rate(fn8, x)
+    embs["int8"] = fn8(x)
+    torch.cuda.synchronize()
+    launches = check_no_launch("phase 37: int8 embed")
+    if not torch.isfinite(embs["int8"]).all():
+        fail("phase 37: non-finite int8 embeddings")
+    cos = (embs["int8"] * embs["f32"]).sum(1)
+    cos_bf16 = (embs["bf16"] * embs["f32"]).sum(1)
+    if cos.min().item() < 0.95:
+        fail(f"phase 37: int8 to f32 cosine {cos.min().item():.4f} < 0.95")
+    acc = int8_accumulators_vs_cpu(table, calib[:8])
+    out = {"entries": len(table.entries),
+           "kinds": {k: table.kinds.count(k) for k in set(table.kinds)},
+           "calibration_s": calib_s,
+           "weight_bytes_f32": f32_param_bytes,
+           "weight_bytes_int8_table": table.nbytes(),
+           "weight_bytes_stripped_model": param_bytes(lean),
+           "allocated_bytes_f32_model": f32_bytes,
+           "allocated_bytes_freed_by_strip": freed,
+           "images_per_s": rates,
+           "cos_int8_f32_min": cos.min().item(),
+           "cos_int8_f32_mean": cos.mean().item(),
+           "cos_bf16_f32_min": cos_bf16.min().item(),
+           "accumulators_card_vs_cpu_equal": acc, "launches": launches}
+    log(f"phase 37: int8 embedder: {len(table.entries)} entries {out['kinds']}"
+        f", calibrated in {calib_s:.2f} s; weights {f32_param_bytes} B f32 -> "
+        f"{table.nbytes()} B int8 + {param_bytes(lean)} B kept; the f32 "
+        f"model allocated {f32_bytes} B, stripping freed {freed} B; embed "
+        f"batch {SERVE_BATCH}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f" images/s; cos int8/f32 min {cos.min().item():.5f} mean "
+        f"{cos.mean().item():.5f} (bf16/f32 min {cos_bf16.min().item():.5f})"
+        f"; int32 accumulators card == CPU at {acc}")
+    return out
+
+
+def phase_int8_inversion() -> dict:
+    """Phase 38: int8 ReStyle inversion on phase 3's PSp(256): calibrate
+    with calibrate_with over run_on_batch, then the int8 loop at BATCH for
+    ITERS iterations; B1/B2 launch as often as in the f32 loop; the image
+    error against f32 and the time an iteration takes (host clock around
+    the synchronized loop, after a warm-up)."""
+    model = build_psp(OUTPUT_SIZE, INPUT_SIZE, seed=0, device="cuda")
+    x, avg = (t.cuda() for t in make_inputs(BATCH))
+    xc, _ = make_inputs(BATCH, seed=5)
+    t0 = time.perf_counter()
+    table = quantize.calibrate_with(
+        lambda xx, hook: run_on_batch(model, xx, avg, ITERS, quant=hook),
+        [xc.cuda()])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    lean = quantize.strip_quantized_weights(model, table)
+
+    def loop(m, quant):
+        def run():
+            return run_on_batch(m, x, avg, ITERS, quant=None if quant is None
+                                else quantize.Int8Apply(table.entries))
+        return run
+
+    result = {}
+    for name, run in (("f32", loop(model, None)), ("int8", loop(lean, 1))):
+        run()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs, lats = run()
+        torch.cuda.synchronize()
+        result[name] = (outs, lats, read_launches(),
+                        (time.perf_counter() - t0) * 1e3 / ITERS)
+    (fo, fl, fla, fms), (io, il, ila, ims) = result["f32"], result["int8"]
+    if ila != fla or fla["bias_act"] != 13 * ITERS or \
+            fla["smooth_upsample"] != 12 * ITERS:
+        fail(f"phase 38: int8 loop launched {ila}, f32 loop {fla}")
+    if not torch.isfinite(io).all():
+        fail("phase 38: non-finite int8 inversion")
+    err = ((io - fo).abs().amax() / fo.abs().amax()).item()
+    mean_err = (io - fo).abs().mean().item()
+    lat_err = ((il - fl).abs().amax() / fl.abs().amax()).item()
+    kinds = {k: table.kinds.count(k) for k in set(table.kinds)}
+    log(f"phase 38: int8 inversion batch {BATCH}, {ITERS} iterations: "
+        f"{len(table.entries)} entries {kinds}, calibrated in {calib_s:.2f} "
+        f"s; launches {ila} (f32 {fla}); images max err {err:.4f} of the "
+        f"range, mean abs {mean_err:.4f}; latents {lat_err:.4f}; ms an "
+        f"iteration int8 {ims:.2f}, f32 {fms:.2f}")
+    return {"entries": len(table.entries), "kinds": kinds,
+            "calibration_s": calib_s, "launches": ila, "launches_f32": fla,
+            "image_max_err_rel": err, "image_mean_abs_err": mean_err,
+            "latent_max_err_rel": lat_err, "ms_per_iteration_int8": ims,
+            "ms_per_iteration_f32": fms}
+
+
+def phase_export_embedder(root: str) -> dict:
+    """Phase 39: the recipe's PSpFaceRec exported in f32 and bf16 with a
+    symbolic batch, saved, loaded and run at EXPORT_BATCHES against the
+    eager model of the same dtype; no B1/B1b/B2/B2b launch."""
+    model = serving_embedder()
+    images, _ = verification_pairs(SERVE_BATCH // 2, seed=39)
+    x = torch.from_numpy(images).cuda()
+    out = {}
+    reset_launches()
+    for dname, dtype in DTYPES.items():
+        path = os.path.join(root, f"embedder_{dname}")
+        t0 = time.perf_counter()
+        ep = export_utils.export_embedder(model, dtype=dtype, device="cuda")
+        export_s = time.perf_counter() - t0
+        export_utils.save_exported(ep, path, fn_name="embedder")
+        run = export_utils.load_exported(path).module()
+        eager = copy.deepcopy(model).to(dtype)
+        row = {"export_s": export_s,
+               "artifact_bytes": os.path.getsize(
+                   os.path.join(path, export_utils.ARTIFACT))}
+        with torch.no_grad():
+            for b in EXPORT_BATCHES:
+                xb = x[:b].to(dtype)
+                got = run(xb).float()
+                want = eager(xb.permute(0, 3, 1, 2)).float()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                if not (torch.isfinite(got).all()
+                        and err <= EXPORT_TOL[dname] * scale):
+                    fail(f"phase 39: exported {dname} embedder at batch {b}:"
+                         f" max err {err:.3e} > {EXPORT_TOL[dname]} x "
+                         f"{scale:.3e}")
+                row[f"max_abs_err_batch{b}"] = err
+            xb = x.to(dtype)
+            row["ms_exported"] = cuda_time_ms(lambda: run(xb), reps=5,
+                                              warmup=1)
+            row["ms_eager"] = cuda_time_ms(
+                lambda: eager(xb.permute(0, 3, 1, 2)), reps=5, warmup=1)
+        out[dname] = row
+        log(f"phase 39: exported {dname} embedder in {export_s:.2f} s "
+            f"({row['artifact_bytes']} B): "
+            + ", ".join(f"batch {b} max err {row[f'max_abs_err_batch{b}']:.2e}"
+                        for b in EXPORT_BATCHES)
+            + f"; batch {SERVE_BATCH} {row['ms_exported']:.2f} ms exported, "
+            f"{row['ms_eager']:.2f} ms eager")
+        del eager, run, ep
+    out["launches"] = check_no_launch("phase 39: exported embedder")
+    return out
+
+
+def phase_export_generator(root: str) -> dict:
+    """Phase 40: a seeded StyleGAN2-ADA G (GEN_EXPORT_SIZE², z 512) saved
+    as a torch ADA .pt, exported by tools/export_model.py, loaded: the
+    graph holds the B1/B2 custom ops, the output equals eager bit for bit
+    and B1/B2 launch as often as eager's."""
+    g = Generator(z_dim=512, img_resolution=GEN_EXPORT_SIZE)
+    init_weights(g, torch.Generator().manual_seed(40))
+    pt = os.path.join(root, "g.pt")
+    torch.save({"state_dict": {f"G.{k}": v for k, v in
+                               g.state_dict().items()}}, pt)
+    path = os.path.join(root, "generator")
+    t0 = time.perf_counter()
+    export_model.main(["--kind", "generator", "--checkpoint", pt, "--out",
+                       path, "--img_resolution", str(GEN_EXPORT_SIZE),
+                       "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    ep = export_utils.load_exported(path)
+    nodes = {}
+    for n in ep.graph.nodes:
+        if n.op == "call_function" and str(n.target).startswith("sgfr."):
+            nodes[str(n.target)] = nodes.get(str(n.target), 0) + 1
+    if not (nodes.get("sgfr.bias_act.default")
+            and nodes.get("sgfr.smooth_upsample.default")):
+        fail(f"phase 40: the exported graph lacks the kernels' ops: {nodes}")
+    run = ep.module()
+    g = g.cuda().eval()
+    z = torch.randn((GEN_EXPORT_BATCH, 512),
+                    generator=torch.Generator().manual_seed(41)).cuda()
+    with torch.no_grad():
+        reset_launches()
+        want = g(z, noise_mode="const").permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        eager_launches = read_launches()
+        reset_launches()
+        got = run(z)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != eager_launches or not launches["bias_act"] \
+                or not launches["smooth_upsample"]:
+            fail(f"phase 40: exported launches {launches}, eager "
+                 f"{eager_launches}")
+        if not torch.equal(got, want):
+            fail(f"phase 40: exported generator differs from eager by "
+                 f"{(got - want).abs().max().item():.3e}")
+        ms_exported = cuda_time_ms(lambda: run(z), reps=5, warmup=1)
+        ms_eager = cuda_time_ms(lambda: g(z, noise_mode="const"), reps=5,
+                                warmup=1)
+    with open(os.path.join(path, export_utils.SIDECAR)) as f:
+        sidecar = json.load(f)
+    log(f"phase 40: export_model generator {GEN_EXPORT_SIZE}² in "
+        f"{export_s:.2f} s, custom-op nodes {nodes}; bit-equal to eager at "
+        f"batch {GEN_EXPORT_BATCH}; launches {launches} (eager "
+        f"{eager_launches}); {ms_exported:.2f} ms exported, {ms_eager:.2f} "
+        f"ms eager; sidecar {sidecar['in_avals']} -> {sidecar['out_avals']}")
+    return {"export_s": export_s, "graph_nodes": nodes, "launches": launches,
+            "launches_eager": eager_launches, "bit_equal": True,
+            "ms_exported": ms_exported, "ms_eager": ms_eager,
+            "sidecar": {k: sidecar[k] for k in ("fn_name", "platforms",
+                                                "in_avals", "out_avals")}}
+
+
+def op_dispatch_us(calls: int = 2000) -> dict:
+    """Host µs a call of B1 at a small shape through the custom op
+    (``bias_act``: dispatcher, autograd registration, the CUDA
+    implementation) and through the CUDA implementation called directly,
+    in turns op, direct, direct, op; host clock over ``calls`` calls that
+    end in a synchronize. The difference is what registering the kernels
+    as ops costs each launch."""
+    x = torch.randn((8, 512, 4, 4), device="cuda")
+    b = torch.zeros(512, device="cuda")
+    runs = {"op": lambda: bias_act(x, b, clamp=256.0),
+            "direct": lambda: fused_act._bias_act_cuda(x, b, "lrelu", 1.0,
+                                                       256.0)}
+    out = {"op": [], "direct": []}
+    with torch.no_grad():
+        for name in ("op", "direct", "direct", "op"):
+            fn = runs[name]
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e6 / calls)
+    return out
+
+
+def phase_serving() -> dict:
+    """Phases 37-40."""
+    serving = {"int8_embed": phase_int8_embed(),
+               "int8_inversion": phase_int8_inversion()}
+    with tempfile.TemporaryDirectory() as root:
+        serving["export_embedder"] = phase_export_embedder(root)
+        serving["export_generator"] = phase_export_generator(root)
+    serving["op_dispatch_us"] = op_dispatch_us()
+    log(f"phase 40: host µs a B1 call at (8, 512, 4, 4): custom op "
+        f"{serving['op_dispatch_us']['op']}, its CUDA implementation "
+        f"called directly {serving['op_dispatch_us']['direct']}")
+    return serving
+
+
 def zoo_launches(zoo: dict) -> dict:
     """B1/B1b/B2/B2b launches summed over phases 28-32's recorded counts."""
     found = []
@@ -4150,6 +4529,9 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         host["loaders"] = phase_loaders(root)
         host["feed"] = phase_loader_feed(os.path.join(root, "packed"))
+    t_serving = time.perf_counter()
+    serving = phase_serving()
+    log(f"phases 37-40 in {time.perf_counter() - t_serving:.1f} s")
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -4180,6 +4562,16 @@ def main():
             # phases 33-36: each checked to be 0
             "launches_host_data": sum(v["launches"][name]
                                       for v in host.values()),
+            # phases 37-40: int8 embed and the exported embedder checked
+            # to be 0; int8 inversion and the exported generator equal to
+            # their f32 / eager runs
+            "launches_int8_embed": serving["int8_embed"]["launches"][name],
+            "launches_int8_inversion": serving["int8_inversion"][
+                "launches"][name],
+            "launches_export_embedder": serving["export_embedder"][
+                "launches"][name],
+            "launches_export_generator": serving["export_generator"][
+                "launches"][name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -4195,6 +4587,7 @@ def main():
     print(json.dumps({"generators_fid_eval": gens}))
     print(json.dumps({"stage3_zoo": zoo}))
     print(json.dumps({"host_data": host}))
+    print(json.dumps({"serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ Public layout is NHWC, as in the JAX package: images in and out are
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List
 
 import numpy as np
@@ -15,16 +16,24 @@ import torch
 from ..models.psp import PSp
 from ..ops.image import hflip, resize_bilinear
 from ..utils.device import resolve_device
+from ..utils.quantize import hooked
 
 
 def run_on_batch(model: PSp, inputs: torch.Tensor, avg_image: torch.Tensor,
-                 n_iters: int, resize_outputs: bool = True):
+                 n_iters: int, resize_outputs: bool = True, quant=None):
     """inputs: (B, H, W, 3) on the model's device; avg_image: (H, W, 3).
     Runs ``n_iters`` refinement iterations with const noise and returns
     (outputs per iteration (iters, B, H', W', 3), latents per iteration
-    (iters, B, n_styles, 512))."""
-    return encoder_bootstrap(model, model, inputs, avg_image, n_iters,
-                             resize_outputs)
+    (iters, B, n_styles, 512)).
+
+    ``quant``: a hook of ``utils.quantize`` installed over the whole loop,
+    so the encoder's convs and linears and the decoder's modulated convs
+    of every iteration go to it, one entry a call: a fresh
+    ``Int8Apply(table.entries)`` serves the int8 loop, a recorder
+    (``calibrate_with``) calibrates it."""
+    with contextlib.nullcontext() if quant is None else hooked(quant):
+        return encoder_bootstrap(model, model, inputs, avg_image, n_iters,
+                                 resize_outputs)
 
 
 @torch.inference_mode()

@@ -33,6 +33,7 @@ from ..nn.layers import InstanceNorm2d
 from ..ops.fused_act import bias_act
 from ..ops.modconv import modulated_conv2d
 from ..ops.resample import smooth_downsample, smooth_upsample
+from ..utils.quantize import active_hook
 
 _NOISE_MODES = ("const", "none", "random")
 _SYNTHESIS_LAYERS = ("stylegan2", "stylegan1")
@@ -221,8 +222,16 @@ class SynthesisLayer(nn.Module):
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``noise`` (N, 1, res, res) replaces the random draw."""
         styles = self.affine(w)
-        x = modulated_conv2d(x, self.weight, styles,
-                             padding=self.kernel_size // 2, demodulate=True)
+        # int8 serving (utils/quantize.py): the scaled-activation modconv
+        # has a static base weight, so a hook quantizes it like a conv
+        quant = active_hook()
+        if quant is not None:
+            x = quant.modconv(self.weight, x, styles,
+                              padding=self.kernel_size // 2, demodulate=True)
+        else:
+            x = modulated_conv2d(x, self.weight, styles,
+                                 padding=self.kernel_size // 2,
+                                 demodulate=True)
         if self.up:
             x = smooth_upsample(x)
         x = _add_noise(x, self.noise_strength, self.noise_const, noise_mode,
@@ -250,7 +259,12 @@ class ToRGBLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d(x, self.weight, styles, demodulate=False)
+        quant = active_hook()
+        if quant is not None:
+            x = quant.modconv(self.weight, x, styles, padding=0,
+                              demodulate=False)
+        else:
+            x = modulated_conv2d(x, self.weight, styles, demodulate=False)
         return torch.clamp(x + self.bias.to(x.dtype)[:, None, None], -256,
                            256)
 

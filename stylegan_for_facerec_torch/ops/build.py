@@ -106,6 +106,14 @@ def check_input(op: str, x: torch.Tensor, *others: torch.Tensor) -> int:
     return _DTYPE_CODES[x.dtype]
 
 
+def check_device(op: str, x: torch.Tensor) -> None:
+    """A wrapper takes the plain version for a CPU tensor and the kernel for
+    a CUDA one; a tensor on any other device (meta included, which would
+    reach the op's fake implementation) is refused."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: kernel needs a CUDA tensor, got {x.device}")
+
+
 def fastdiv(d: int) -> Tuple[int, int]:
     """(magic, shift) for ``csrc/common.cuh``'s ``FastDiv``, which divides
     0 <= n < 2**31 by d as ``(umulhi(n, magic) + n) >> shift``."""

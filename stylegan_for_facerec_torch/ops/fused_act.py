@@ -1,19 +1,22 @@
 """Fused bias + leaky ReLU + gain + clamp (the StyleGAN2-ADA activation),
 and its gradient.
 
-``bias_act`` runs as the autograd Function ``_BiasAct``. On a CUDA tensor
-its forward launches kernel B1 (``csrc/bias_act.cu``), which replaces the
-Pallas kernel ``_fba_kernel`` of
+``bias_act`` runs the ``torch.library`` custom op ``sgfr::bias_act``. On a
+CUDA tensor it launches kernel B1 (``csrc/bias_act.cu``), which replaces
+the Pallas kernel ``_fba_kernel`` of
 ``stylegan_for_facerec_tpu/ops/fused_act.py::fused_bias_act_pallas``, and
-its backward launches kernel B1b (``csrc/bias_act_grad.cu``), which
-replaces ``_fba_grad_kernel`` of that op's custom VJP. On a CPU tensor the
-same Functions run the plain versions, ``bias_act_plain`` and
-``bias_act_grad_plain``. B1 moves 2 * numel * elem bytes (x read, y
+its backward, the op ``sgfr::bias_act_grad``, launches kernel B1b
+(``csrc/bias_act_grad.cu``), which replaces ``_fba_grad_kernel`` of that
+op's custom VJP. On a CPU tensor the same ops run the plain versions,
+``bias_act_plain`` and ``bias_act_grad_plain``. Each op has a fake
+implementation, so ``torch.export`` traces them as graph nodes, and each
+counts its launches inside its CUDA implementation, so an exported
+program's launches count too. B1 moves 2 * numel * elem bytes (x read, y
 written), B1b 3 * numel * elem (x and g read, dx written); both are bound
 by memory.
 
-The backward is itself a Function (``_BiasActGrad``) whose backward calls
-the grad kernel on the incoming gradient: dx is linear in g and piecewise
+The backward op is itself differentiable: its backward calls the grad
+kernel on the incoming gradient: dx is linear in g and piecewise
 constant in x, so that gives the second derivative (stage 1's R1 penalty
 differentiates through B1 twice). The bias gradient ``db = sum(dx)`` is
 taken in PyTorch, as the JAX package sums outside its kernel, and only
@@ -142,9 +145,19 @@ def _plan(shape, elem: int, x_ptr: int, y_ptr: int, sms: int,
             *build.fastdiv(shape[1]))
 
 
-def _forward(x: torch.Tensor, bias: torch.Tensor, slope: float, gain: float,
-             clamp: Optional[float]) -> torch.Tensor:
-    """Kernel B1 on a CUDA tensor; ``gain``/``clamp`` are the totals."""
+@torch.library.custom_op("sgfr::bias_act", mutates_args=(),
+                         device_types="cpu")
+def _bias_act_op(x: torch.Tensor, bias: torch.Tensor, act: str, gain: float,
+                 clamp: Optional[float]) -> torch.Tensor:
+    """The op ``sgfr::bias_act``: its CPU implementation is the plain
+    version; its CUDA implementation launches kernel B1."""
+    return bias_act_plain(x, bias, act, gain, clamp)
+
+
+@_bias_act_op.register_kernel("cuda")
+def _bias_act_cuda(x, bias, act, gain, clamp):
+    """Kernel B1 with the total gain and clamp."""
+    slope, act_gain = _ACTS[act]
     code = _check_bias("bias_act", x, bias)
     b = bias.detach().to(torch.float32).contiguous()
     y = torch.empty_like(x)
@@ -154,23 +167,26 @@ def _forward(x: torch.Tensor, bias: torch.Tensor, slope: float, gain: float,
     plan = _plan(x.shape, x.element_size(), x.data_ptr() % 16,
                  y.data_ptr() % 16, build.sm_count(x.device.index))
     rc = _entry()(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // hw,
-                  hw, x.shape[1], code, *plan, slope, gain,
-                  -1.0 if clamp is None else clamp,
+                  hw, x.shape[1], code, *plan, slope, act_gain * gain,
+                  -1.0 if clamp is None else clamp * gain,
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error("bias_act", rc)
     bias_act.launches += 1
     return y
 
 
-def bias_act_grad(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
-                  slope: float, gain: float,
-                  clamp: Optional[float]) -> torch.Tensor:
-    """The semantics of ``bias_act_grad_plain``; kernel B1b on a CUDA
-    tensor (g and x contiguous, of one shape and dtype, f32 or bf16; math
-    in f32), the plain version on a CPU one. ``bias_act_grad.launches``
-    counts the kernel's launches."""
-    if x.device.type == "cpu":
-        return bias_act_grad_plain(g, x, bias, slope, gain, clamp)
+@torch.library.custom_op("sgfr::bias_act_grad", mutates_args=(),
+                         device_types="cpu")
+def _bias_act_grad_op(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
+                      slope: float, gain: float,
+                      clamp: Optional[float]) -> torch.Tensor:
+    """The op ``sgfr::bias_act_grad``: its CPU implementation is the plain
+    version; its CUDA implementation launches kernel B1b."""
+    return bias_act_grad_plain(g, x, bias, slope, gain, clamp)
+
+
+@_bias_act_grad_op.register_kernel("cuda")
+def _bias_act_grad_cuda(g, x, bias, slope, gain, clamp):
     code = _check_bias("bias_act_grad", x, bias)
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
             or not g.is_contiguous()):
@@ -195,60 +211,83 @@ def bias_act_grad(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
     return dx
 
 
-class _BiasActGrad(torch.autograd.Function):
-    """dx = B1b(g, x, b). Linear in g, piecewise constant in x and b: its
-    own backward is B1b applied to the incoming gradient."""
-
-    @staticmethod
-    def forward(ctx, g, x, bias, slope, gain, clamp):
-        ctx.save_for_backward(x, bias)
-        ctx.params = (slope, gain, clamp)
-        return bias_act_grad(g.contiguous(), x, bias, slope, gain, clamp)
-
-    @staticmethod
-    def backward(ctx, ggx):
-        x, bias = ctx.saved_tensors
-        return (_BiasActGrad.apply(ggx, x, bias, *ctx.params),
-                None, None, None, None, None)
+@_bias_act_op.register_fake
+def _bias_act_fake(x, bias, act, gain, clamp):
+    return torch.empty_like(x)
 
 
-class _BiasAct(torch.autograd.Function):
-    """y = B1(x, b); saves x and the bias, as ``_fba_fwd`` does."""
+@_bias_act_grad_op.register_fake
+def _bias_act_grad_fake(g, x, bias, slope, gain, clamp):
+    return torch.empty_like(x)
 
-    @staticmethod
-    def forward(ctx, x, bias, act, gain, clamp):
-        slope, act_gain = _ACTS[act]
-        ctx.save_for_backward(x, bias)
-        ctx.params = (slope, act_gain * gain,
-                      None if clamp is None else clamp * gain)
-        if x.device.type == "cpu":
-            return bias_act_plain(x, bias, act, gain, clamp)
-        return _forward(x, bias, *ctx.params)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, bias = ctx.saved_tensors
-        dx = _BiasActGrad.apply(dy, x, bias, *ctx.params)
-        db = None
-        if ctx.needs_input_grad[1]:
-            dims = [d for d in range(dx.dim()) if d != 1]
-            ct = torch.promote_types(dx.dtype, torch.float32)
-            db = dx.to(ct).sum(dims).to(bias.dtype)
-        return dx, db, None, None, None
+def _bias_act_setup(ctx, inputs, output):
+    x, bias, act, gain, clamp = inputs
+    slope, act_gain = _ACTS[act]
+    ctx.save_for_backward(x, bias)
+    ctx.params = (slope, act_gain * gain,
+                  None if clamp is None else clamp * gain)
+
+
+def _bias_act_backward(ctx, dy):
+    """dx = B1b(dy, x, b); db = sum(dx) over all but dim 1, only when the
+    bias needs it (as ``_fba_bwd`` sums outside its kernel)."""
+    x, bias = ctx.saved_tensors
+    dx = _bias_act_grad_op(dy.contiguous(), x, bias, *ctx.params)
+    db = None
+    if ctx.needs_input_grad[1]:
+        dims = [d for d in range(dx.dim()) if d != 1]
+        ct = torch.promote_types(dx.dtype, torch.float32)
+        db = dx.to(ct).sum(dims).to(bias.dtype)
+    return dx, db, None, None, None
+
+
+def _bias_act_grad_setup(ctx, inputs, output):
+    g, x, bias, slope, gain, clamp = inputs
+    ctx.save_for_backward(x, bias)
+    ctx.params = (slope, gain, clamp)
+
+
+def _bias_act_grad_backward(ctx, ggx):
+    """dx is linear in g and piecewise constant in x and b: the gradient
+    of B1b is B1b applied to the incoming gradient."""
+    x, bias = ctx.saved_tensors
+    return (_bias_act_grad_op(ggx.contiguous(), x, bias, *ctx.params),
+            None, None, None, None, None)
+
+
+_bias_act_op.register_autograd(_bias_act_backward,
+                               setup_context=_bias_act_setup)
+_bias_act_grad_op.register_autograd(_bias_act_grad_backward,
+                                    setup_context=_bias_act_grad_setup)
+
+
+def bias_act_grad(g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor,
+                  slope: float, gain: float,
+                  clamp: Optional[float]) -> torch.Tensor:
+    """The semantics of ``bias_act_grad_plain`` (differentiable in g, to
+    any order): the op ``sgfr::bias_act_grad``, kernel B1b on a CUDA
+    tensor (g and x contiguous, of one shape and dtype, f32 or bf16; math
+    in f32), the plain version on a CPU one. ``bias_act_grad.launches``
+    counts the kernel's launches."""
+    build.check_device("bias_act_grad", x)
+    return _bias_act_grad_op(g, x, bias, slope, gain, clamp)
 
 
 def bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
              act: str = "lrelu", gain: float = 1.0,
              clamp: Optional[float] = None) -> torch.Tensor:
-    """The semantics of ``bias_act_plain``, differentiable twice: kernels
-    B1 forward and B1b backward on a CUDA tensor (contiguous, f32 or bf16,
-    math in f32), the plain versions on a CPU one.
-    ``bias_act.launches`` counts B1's launches."""
+    """The semantics of ``bias_act_plain``, differentiable twice: the op
+    ``sgfr::bias_act``, kernels B1 forward and B1b backward on a CUDA
+    tensor (contiguous, f32 or bf16, math in f32), the plain versions on a
+    CPU one. ``bias_act.launches`` counts B1's launches."""
     if act not in _ACTS:
         raise ValueError(act)
+    build.check_device("bias_act", x)
     if bias is None:
         bias = torch.zeros(x.shape[1], device=x.device)
-    return _BiasAct.apply(x, bias, act, gain, clamp)
+    return _bias_act_op(x, bias, act, float(gain),
+                        None if clamp is None else float(clamp))
 
 
 def fused_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,

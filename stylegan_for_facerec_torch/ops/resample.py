@@ -1,22 +1,26 @@
 """StyleGAN2-ADA smooth 2x upsample: nearest x2, replication pad (2,1,2,1),
 [1,3,3,1]/8 blur on both axes. NCHW. And its adjoint.
 
-``smooth_upsample`` runs as the autograd Function ``_SmoothUpsample``. On
-a CUDA tensor its forward launches kernel B2 (``csrc/smooth_upsample.cu``),
-which replaces the Pallas kernel ``_kernel`` of
+``smooth_upsample`` runs the ``torch.library`` custom op
+``sgfr::smooth_upsample``. On a CUDA tensor it launches kernel B2
+(``csrc/smooth_upsample.cu``), which replaces the Pallas kernel
+``_kernel`` of
 ``stylegan_for_facerec_tpu/ops/upfirdn_pallas.py::smooth_upsample_pallas``,
-and its backward launches kernel B2b (``csrc/smooth_upsample_grad.cu``),
-the adjoint stencil. B2b has no Pallas twin: the JAX package leaves this
-gradient to XLA's autodiff of ``ops/resample.py::smooth_upsample``. On a
-CPU tensor the same Functions run ``smooth_upsample_plain`` (the literal
+and its backward, the op ``sgfr::smooth_upsample_grad``, launches kernel
+B2b (``csrc/smooth_upsample_grad.cu``), the adjoint stencil. B2b has no
+Pallas twin: the JAX package leaves this gradient to XLA's autodiff of
+``ops/resample.py::smooth_upsample``. On a
+CPU tensor the same ops run ``smooth_upsample_plain`` (the literal
 reference sequence) and ``smooth_upsample_grad_plain`` (its steps
 transposed, in reverse order). Both kernels are bound by memory: each
 moves 5 * numel_in * elem bytes and never stores the 4x nearest-upsampled
 tensor that the plain versions make and pad.
 
-The op is linear, so the adjoint's own backward is the forward again:
-``_SmoothUpsampleGrad.backward`` calls B2, and the pair is differentiable
-to any order.
+The op is linear, so the adjoint's own backward is the forward again: the
+backward of ``sgfr::smooth_upsample_grad`` calls B2, and the pair is
+differentiable to any order. Both ops have fake implementations for
+``torch.export`` and count their launches inside their CUDA
+implementations.
 
 ``smooth_downsample`` (replication pad (2, 1), the same FIR, keep every
 second sample) has no kernel of its own, as in the JAX package, where it
@@ -232,10 +236,16 @@ def _grad_plan(shape, elem: int, g_ptr: int, dx_ptr: int,
             tile_w, lg_nq, vec, *build.fastdiv(runs_per_plane))
 
 
-def _upsample(x: torch.Tensor) -> torch.Tensor:
-    """Kernel B2 on a CUDA tensor, the plain version on a CPU one."""
-    if x.device.type == "cpu":
-        return smooth_upsample_plain(x)
+@torch.library.custom_op("sgfr::smooth_upsample", mutates_args=(),
+                         device_types="cpu")
+def _upsample_op(x: torch.Tensor) -> torch.Tensor:
+    """The op ``sgfr::smooth_upsample``: its CPU implementation is the
+    plain version; its CUDA implementation launches kernel B2."""
+    return smooth_upsample_plain(x)
+
+
+@_upsample_op.register_kernel("cuda")
+def _upsample_cuda(x):
     code = build.check_input("smooth_upsample", x)
     if x.dim() != 4 or x.shape[2] < 1 or x.shape[3] < 1:
         raise ValueError(f"smooth_upsample: needs (N, C, H, W) with H, W >= "
@@ -254,13 +264,16 @@ def _upsample(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def smooth_upsample_grad(g: torch.Tensor) -> torch.Tensor:
-    """The semantics of ``smooth_upsample_grad_plain``; kernel B2b on a
-    CUDA tensor (contiguous NCHW with even H, W >= 2, f32 or bf16, f32
-    accumulation), the plain version on a CPU one.
-    ``smooth_upsample_grad.launches`` counts the kernel's launches."""
-    if g.device.type == "cpu":
-        return smooth_upsample_grad_plain(g)
+@torch.library.custom_op("sgfr::smooth_upsample_grad", mutates_args=(),
+                         device_types="cpu")
+def _upsample_grad_op(g: torch.Tensor) -> torch.Tensor:
+    """The op ``sgfr::smooth_upsample_grad``: its CPU implementation is the
+    plain version; its CUDA implementation launches kernel B2b."""
+    return smooth_upsample_grad_plain(g)
+
+
+@_upsample_grad_op.register_kernel("cuda")
+def _upsample_grad_cuda(g):
     code = build.check_input("smooth_upsample_grad", g)
     if (g.dim() != 4 or g.shape[2] < 2 or g.shape[3] < 2
             or g.shape[2] % 2 or g.shape[3] % 2):
@@ -280,32 +293,44 @@ def smooth_upsample_grad(g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
-class _SmoothUpsample(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return _upsample(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _SmoothUpsampleGrad.apply(g)
+@_upsample_op.register_fake
+def _upsample_fake(x):
+    n, c, h, w = x.shape
+    return x.new_empty((n, c, 2 * h, 2 * w))
 
 
-class _SmoothUpsampleGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, g):
-        return smooth_upsample_grad(g.contiguous())
+@_upsample_grad_op.register_fake
+def _upsample_grad_fake(g):
+    n, c, h2, w2 = g.shape
+    return g.new_empty((n, c, h2 // 2, w2 // 2))
 
-    @staticmethod
-    def backward(ctx, gg):
-        return _SmoothUpsample.apply(gg.contiguous())
+
+# the op is linear: B2 and B2b are each other's adjoint, so the pair is
+# differentiable to any order
+_upsample_op.register_autograd(
+    lambda ctx, g: _upsample_grad_op(g.contiguous()))
+_upsample_grad_op.register_autograd(
+    lambda ctx, gg: _upsample_op(gg.contiguous()))
+
+
+def smooth_upsample_grad(g: torch.Tensor) -> torch.Tensor:
+    """The semantics of ``smooth_upsample_grad_plain``, differentiable:
+    the op ``sgfr::smooth_upsample_grad``, kernel B2b on a CUDA tensor
+    (contiguous NCHW with even H, W >= 2, f32 or bf16, f32 accumulation),
+    the plain version on a CPU one. ``smooth_upsample_grad.launches``
+    counts the kernel's launches."""
+    build.check_device("smooth_upsample_grad", g)
+    return _upsample_grad_op(g)
 
 
 def smooth_upsample(x: torch.Tensor) -> torch.Tensor:
-    """The semantics of ``smooth_upsample_plain``, differentiable: kernels
-    B2 forward and B2b backward on a CUDA tensor (contiguous NCHW, f32 or
-    bf16, any C, H, W >= 1), the plain versions on a CPU one.
-    ``smooth_upsample.launches`` counts B2's launches."""
-    return _SmoothUpsample.apply(x)
+    """The semantics of ``smooth_upsample_plain``, differentiable: the op
+    ``sgfr::smooth_upsample``, kernels B2 forward and B2b backward on a
+    CUDA tensor (contiguous NCHW, f32 or bf16, any C, H, W >= 1), the
+    plain versions on a CPU one. ``smooth_upsample.launches`` counts B2's
+    launches."""
+    build.check_device("smooth_upsample", x)
+    return _upsample_op(x)
 
 
 smooth_upsample.launches = 0

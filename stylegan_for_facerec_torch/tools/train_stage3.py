@@ -31,8 +31,10 @@ through ``make_loader`` (the C++ loader where it can take the tree, with
 ``--randaugment``, whose N operations an image run on the host and which
 packed shards refuse); the crop to the input size and the flip run in the
 train step. After each epoch every ``eval_benchmarks`` set found
-as ``data_root/<name>.npz`` is verified and a checkpoint is written under
-``model_root/name``; SIGTERM/SIGINT save mid-epoch, and ``--resume``
+as ``data_root/<name>.npz`` is verified, its accuracy, threshold and ROC
+curve image (``logs/<name>_ROC_Curve/<step>.png``; skipped, said once,
+where matplotlib is not installed) logged, and a checkpoint is written
+under ``model_root/name``; SIGTERM/SIGINT save mid-epoch, and ``--resume``
 continues from the newest checkpoint (a preempted epoch replays its
 loader permutation and skips the batches it had taken).
 """
@@ -291,6 +293,10 @@ def _train(args, opts, trainer, loader, mgr, val_data, start_epoch,
 
     step = resume_step if resume_step is not None \
         else start_epoch * steps_per_epoch
+    plots = importlib.util.find_spec("matplotlib") is not None
+    if val_data and not plots:
+        print("[eval] matplotlib is not installed: the ROC curve images "
+              "are skipped; accuracy and thresholds are still logged")
     with MetricLogger(os.path.join(mgr.root, "logs")) as logger:
         for epoch in range(start_epoch, opts.num_epochs):
             frozen = (opts.freeze_backbone_epochs > 0
@@ -352,11 +358,12 @@ def _train(args, opts, trainer, loader, mgr, val_data, start_epoch,
                               "imgs_per_sec": losses.count * opts.batch_size
                               / max(dt, 1e-9)})
             for name, (carray, issame) in val_data.items():
-                acc, thr, _ = perform_val(
+                acc, thr, roc = perform_val(
                     trainer.backbone, carray, issame,
                     batch_size=min(256, len(carray)), emb_size=opts.emb_size,
                     device=str(device))
-                logger.log_benchmark(step, name, acc, thr, epoch=epoch)
+                logger.log_benchmark(step, name, acc, thr, epoch=epoch,
+                                     roc=roc if plots else None)
             mgr.save(step, trainer.state_dict(), metadata={"epoch": epoch})
             if args.max_steps and step >= args.max_steps:
                 break

@@ -28,6 +28,9 @@
     npz format, read without JAX: its ``leaves.npz`` placed by the
     ``manifest.json`` tree description, as nested dicts of numpy arrays
     (what ``utils.convert.from_jax`` takes).
+  * ``write_jax_checkpoint``: the inverse, nested dicts of arrays written
+    as the JAX package's npz checkpoint (``manifest.json`` +
+    ``leaves.npz``) with numpy alone.
   * ``load_state_dict_file``: a ``torch.save``d state_dict, bare or under
     ``state_dict`` (the ``save_checkpoint`` layout), into any module;
     ``load_inception`` reads a torchvision or pytorch-fid InceptionV3
@@ -340,3 +343,37 @@ def read_jax_checkpoint(path: str) -> Dict:
             node = node.setdefault(k, {})
         node[p[-1]] = data[f"leaf_{i}"]
     return tree
+
+
+def _describe(tree) -> Tuple[str, List]:
+    """``str(PyTreeDef)`` of nested dicts and their leaves in JAX's flatten
+    order (keys sorted)."""
+    if not isinstance(tree, Mapping):
+        return "*", [tree]
+    parts, leaves = [], []
+    for k in sorted(tree):
+        d, l = _describe(tree[k])
+        parts.append(f"{k!r}: {d}")
+        leaves += l
+    return "{" + ", ".join(parts) + "}", leaves
+
+
+def write_jax_checkpoint(path: str, tree: Mapping,
+                         metadata: Optional[Dict] = None) -> None:
+    """Write nested dicts of arrays as a checkpoint directory of the JAX
+    package's npz format, with numpy alone: ``leaves.npz`` (``leaf_i`` in
+    JAX's flatten order) and ``manifest.json`` (the tree description
+    ``str(PyTreeDef)``, ``n_leaves``, ``backend`` "npz", ``metadata``).
+    The pickled tree definition needs JAX and is not written
+    (``treedef_pickled`` false): the JAX package's ``load_checkpoint``
+    reads the directory with ``like=`` a tree of the same structure, and
+    ``read_jax_checkpoint`` reads it without one."""
+    os.makedirs(path, exist_ok=True)
+    desc, leaves = _describe(tree)
+    np.savez(os.path.join(path, "leaves.npz"),
+             **{f"leaf_{i}": np.asarray(v) for i, v in enumerate(leaves)})
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump({"treedef": f"PyTreeDef({desc})",
+                   "n_leaves": len(leaves), "backend": "npz",
+                   "treedef_pickled": False,
+                   "metadata": metadata or {}}, f)

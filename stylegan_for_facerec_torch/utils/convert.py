@@ -280,3 +280,121 @@ def load_stage2_encoder_from_jax(backbone: PSpFaceRec, tree: Mapping
             raise SystemExit(f"the stage-2 encoder.{part} does not match "
                              f"the stage-3 backbone (another depth or "
                              f"mode?): {str(e)[:300]}") from e
+
+
+# -- the inverse: a port state_dict into the JAX package's trees ------------
+
+def _hwio(w) -> np.ndarray:
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+_RULED = (nn.Conv2d, EqualConv2d, EqualizedConv2d, ToRGBLayer, ToRGBLayer1,
+          nn.Linear, nn.modules.batchnorm._BatchNorm, nn.PReLU,
+          FullyConnectedLayer, EqualLinear, SynthesisLayer, SynthesisLayer1,
+          SynthesisPrologue, MappingNetwork, PSpFaceRec)
+
+
+def _jax_local(mod: nn.Module, get, hw=None):
+    """(params, state) that module ``mod`` itself owns in the JAX trees,
+    from its own torch tensors (``get(name)``: the array, or None when the
+    state_dict lacks it); the inverse of ``_local_arrays``."""
+    p, s = {}, {}
+
+    def put(d, key, name, fn=np.asarray):
+        v = get(name)
+        if v is not None:
+            d[key] = fn(v)
+
+    if isinstance(mod, (nn.Conv2d, EqualConv2d, EqualizedConv2d,
+                        ToRGBLayer, ToRGBLayer1)):
+        put(p, "weight", "weight", _hwio)
+        put(p, "bias", "bias")
+    elif isinstance(mod, nn.Linear):
+        def lin(w):
+            w = np.asarray(w)
+            if hw is None:
+                return w.T
+            h, wd = hw
+            o = w.shape[0]
+            return w.reshape(o, -1, h, wd).transpose(2, 3, 1, 0).reshape(
+                -1, o)
+        put(p, "weight", "weight", lin)
+        put(p, "bias", "bias")
+    elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        put(p, "weight", "weight")
+        put(p, "bias", "bias")
+        put(s, "mean", "running_mean")
+        put(s, "var", "running_var")
+    elif isinstance(mod, (nn.PReLU, FullyConnectedLayer, EqualLinear)):
+        put(p, "weight", "weight")
+        put(p, "bias", "bias")
+    elif isinstance(mod, (SynthesisLayer, SynthesisLayer1)):
+        put(p, "weight", "weight", _hwio)
+        put(p, "bias", "bias")
+        put(p, "noise_strength", "noise_strength")
+        put(s, "noise_const", "noise_const")
+    elif isinstance(mod, SynthesisPrologue):
+        put(p, "const", "const", lambda c: np.transpose(c, (1, 2, 0)))
+    elif isinstance(mod, MappingNetwork):
+        put(s, "w_avg", "w_avg")
+    elif isinstance(mod, PSpFaceRec):
+        put(s, "avg_image", "avg_image",
+            lambda a: np.transpose(a, (1, 2, 0)))
+    return p, s
+
+
+def to_jax(model: nn.Module, state_dict: Mapping = None,
+           strict: bool = True) -> Tuple[Dict, Dict]:
+    """The JAX package's (params, state) trees of ``model`` (nested dicts
+    of numpy arrays), from ``state_dict`` (default: the model's own), key
+    for key the inverse of ``from_jax``. A module's tree key is its torch
+    name, but a child of an ``nn.ModuleList`` is one dotted key there
+    (``styles.3``, ``blocks.0``, ``lin.0``), as the JAX package names them.
+    A key of the model that ``state_dict`` lacks raises with ``strict``
+    (but ``PSpFaceRec.avg_image``, which reference checkpoints keep out of
+    band), else its leaf is left out (as the JAX
+    ``from_torch(strict=False)``).
+    Covers the convolutional, linear, normalisation and StyleGAN2-ADA
+    modules; a module with tensors of its own and no rule here raises."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    # a PSpFaceRec's avg_image travels outside reference state_dicts
+    missing = {k for k in set(model.state_dict()) - set(sd)
+               if k.rsplit(".", 1)[-1] != "avg_image"}
+    if strict and missing:
+        raise KeyError(f"to_jax: missing {sorted(missing)[:10]}")
+    maps = _flattened_maps(model)
+    params: Dict = {}
+    state: Dict = {}
+
+    def place(tree, path, local):
+        if not local:
+            return
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node.update(local)
+
+    def walk(mod, name, path):
+        def get(key):
+            v = sd.get(f"{name}.{key}" if name else key)
+            return None if v is None else np.asarray(
+                v.detach().cpu() if torch.is_tensor(v) else v)
+
+        mine = [k for k, v in mod._parameters.items() if v is not None]
+        mine += [k for k, v in mod._buffers.items() if v is not None
+                 and k not in mod._non_persistent_buffers_set]
+        if mine and not isinstance(mod, _RULED):
+            raise ValueError(f"to_jax: no rule for {type(mod).__name__} "
+                             f"at {name!r}")
+        p, s = _jax_local(mod, get, maps.get(name))
+        place(params, path, p)
+        place(state, path, s)
+        for cname, child in mod.named_children():
+            if isinstance(mod, nn.ModuleList) and path:
+                cpath = path[:-1] + [f"{path[-1]}.{cname}"]
+            else:
+                cpath = path + [cname]
+            walk(child, f"{name}.{cname}" if name else cname, cpath)
+
+    walk(model, "", [])
+    return params, state
