@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --b2-paths
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --spatial
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build kernels B1 (fused bias-act), B1b (its gradient), B2 (smooth 2x
@@ -266,15 +267,35 @@ Phases, each fatal on failure (nonzero exit, no result line):
  44. export_embedder_sharded + run_sharded at data 1 (phase 42's mesh)
      and data 2 (phase 43's ranks) against export_embedder on the whole
      batch (IR-SE-50 at 112, 8 images, f32), 1e-5 of scale.
-Phases 28-37, 39, 41, 42 and 44 launch none of B1, B1b, B2 or B2b.
+ 45. spatially sharded synthesis: two worker processes on cuda:0 joined
+     by gloo, each computing half of every image's rows through
+     parallel/spatial.py (halo exchanges as all-reduces of edge rows; B1
+     and B2 launched on each band), against one process's whole image:
+     the ADA G at 1024² (z/w 512, 8 mapping layers, channel_base 16384,
+     channel_max 512) at batch 4 in f32 and bf16 with const and random
+     noise, the rosinality G in config-f at 1024² (style 512, 8 MLP
+     layers, channel multiplier 2) at batch 2 with and without random
+     noise, and the StyleGAN1-layer ADA G at 256² at batch 8; each rank's
+     f32 band within 1e-4 of the image's scale (bf16 measured), its
+     B1/B1b/B2/B2b launches the one process's, the gathered image holding
+     its band; ms a call and peak GiB above the weights a rank against
+     the one process's;
+ 46. the stage-3 sweep: the port's tools/tune_stage3.py, IR_SE_50 at bf16
+     (ArcFace over 28 000 classes), batches 128 and 256, remat off and
+     on: ms a step, images/s, FlopCounterMode TFLOP a step and MFU
+     against 989e12, in (0, 1]; no error row; remat slower than no remat
+     at each batch.
+Phases 28-37, 39, 41, 42, 44 and 46 launch none of B1, B1b, B2 or B2b.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
 as nvidia-smi reports them, and the ones before that the stage-1, stage-3,
 e4e, phase 24-27 ("generators_fid_eval"), phase 28-32 ("stage3_zoo"),
-phase 33-36 ("host_data"), phase 37-40 ("serving") and phase 41-44
-("parallel") numbers as JSON. Exits nonzero without a GPU.
+phase 33-36 ("host_data"), phase 37-40 ("serving"), phase 41-44
+("parallel") and phase 45-46 ("spatial_tune") numbers as JSON. Exits
+nonzero without a GPU.
 
---parallel builds the kernels and runs phases 41-44 alone.
+--parallel builds the kernels and runs phases 41-44 alone; --spatial
+phases 45-46.
 
 --kernel-times builds the kernels, times each kernel at every shape one
 synthesis or train step gives it at batch 8 and 128 in f32 and bf16,
@@ -348,7 +369,7 @@ from stylegan_for_facerec_torch.tools import (calc_losses_on_images,
                                               mtcnn_crop_align, pack_rfw,
                                               pack_train, rfw_crop_align,
                                               test_rb_webface, train_stage3)
-from stylegan_for_facerec_torch.tools import convergence_run
+from stylegan_for_facerec_torch.tools import convergence_run, tune_stage3
 from stylegan_for_facerec_torch.parallel import _mp_worker as mp_worker
 from stylegan_for_facerec_torch.parallel import mesh as mesh_lib
 from stylegan_for_facerec_torch.nn.initializers import init_weights
@@ -4679,6 +4700,150 @@ def parallel_main():
 
 
 
+# -- phases 45-46: spatially sharded synthesis and the stage-3 sweep --------
+
+# f32: a rank's band within this of the one-process image's largest
+# magnitude (cuDNN may take other algorithms on a band's shapes)
+SPATIAL_TOL = 1e-4
+SPATIAL_TASK = "spatial:2x1"
+TUNE_ARGS = ("--batches", "128", "256", "--remat", "0", "1", "--dtypes",
+             "bfloat16", "--model", "IR_SE_50", "--device", "cuda")
+
+
+def phase_spatial(root: str) -> dict:
+    """Phase 45: two worker processes on cuda:0 joined by gloo run every
+    ``_mp_worker.SPATIAL_RUNS["full"]`` run through make_spatial_synthesis
+    over the data axis (each rank half the rows); this process runs each
+    whole. A rank's f32 band must equal its rows of the one-process image
+    within SPATIAL_TOL of scale (bf16: measured), its B1/B1b/B2/B2b
+    launches the one process's, the gathered image its band; each rank's
+    ms a call and peak GiB above the weights beside the one process's."""
+    t0 = time.perf_counter()
+    ranks = mp_worker.spawn([SPATIAL_TASK], 2, root, device="cuda:0",
+                            size="full", backend="gloo", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    with open(os.path.join(root, "rank0.log")) as f:
+        head = f.readline().strip()
+    if "backend gloo" not in head or "cuda:0" not in head:
+        fail(f"phase 45: unexpected worker start: {head}")
+    torch.cuda.empty_cache()
+    one = mp_worker.run_task("spatial", None, size="full", device="cuda")
+    out = {"backend": "gloo", "device": "cuda:0", "spawn_s": spawn_s,
+           "runs": {}}
+    for name, family, res, batch, dtype, noise, _ in \
+            mp_worker.SPATIAL_RUNS["full"]:
+        want = one[name]
+        scale = float(want["image"].float().abs().max())
+        if not math.isfinite(scale) or scale == 0:
+            fail(f"phase 45: {name}: one-process image scale {scale}")
+        row = {"family": family, "resolution": res, "batch": batch,
+               "dtype": dtype, "noise": noise, "scale": scale,
+               "launches_one_process": want["launches"],
+               "ms_one_process": want["ms"],
+               "peak_gib_one_process": want["peak_gib"], "ranks": []}
+        if dtype != "float32":
+            # how far this dtype's one process is from its f32 one: the
+            # scale of the bands' differences
+            f32 = one[name.replace("_bf16_", "_f32_")]
+            row["one_process_vs_f32_rel_err"] = float(
+                (want["image"].float() - f32["image"]).abs().max()) / scale
+        if want["launches"]["bias_act"] == 0 or (
+                family != "rosinality"
+                and want["launches"]["smooth_upsample"] == 0):
+            fail(f"phase 45: {name}: the one process launched "
+                 f"{want['launches']}")
+        for rank, r in enumerate(ranks):
+            got = r[SPATIAL_TASK][name]
+            lo, hi = got["rows"]
+            err = float((got["image"].float()
+                         - want["image"][:, :, lo:hi].float()).abs().max())
+            row["ranks"].append({"rows": [lo, hi], "max_abs_err": err,
+                                 "rel_err": err / scale,
+                                 "launches": got["launches"],
+                                 "ms": got["ms"],
+                                 "peak_gib": got["peak_gib"]})
+            if got["launches"] != want["launches"]:
+                fail(f"phase 45: {name} rank {rank} launches "
+                     f"{got['launches']}, one process {want['launches']}")
+            if not got["gather_ok"]:
+                fail(f"phase 45: {name} rank {rank}: the gathered image "
+                     f"does not hold the rank's band")
+            if dtype == "float32" and not err <= SPATIAL_TOL * scale:
+                fail(f"phase 45: {name} rank {rank} rows {lo}-{hi}: max "
+                     f"err {err:.3e} > {SPATIAL_TOL} x {scale:.3e}")
+        out["runs"][name] = row
+        log(f"phase 45: {name} ({family} {res}², batch {batch}, {dtype}, "
+            f"{noise} noise): rank errors "
+            + ", ".join(f"{q['rel_err']:.2e}" for q in row["ranks"])
+            + f" of scale; ms one process {want['ms']:.2f}, ranks "
+            + ", ".join(f"{q['ms']:.2f}" for q in row["ranks"])
+            + f"; peak GiB one process {want['peak_gib']:.3f}, ranks "
+            + ", ".join(f"{q['peak_gib']:.3f}" for q in row["ranks"])
+            + f"; launches a rank {want['launches']}"
+            + (f"; one process against its f32 run "
+               f"{row['one_process_vs_f32_rel_err']:.2e} of scale"
+               if dtype != "float32" else ""))
+    return out
+
+
+def phase_tune() -> dict:
+    """Phase 46: the port's tools/tune_stage3.py on the card, IR_SE_50 at
+    bf16, batches 128 and 256, remat off and on: no error row, MFU in (0,
+    1], remat slower than no remat at each batch, no B1/B1b/B2/B2b
+    launch."""
+    reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        rows = tune_stage3.main(list(TUNE_ARGS) + [
+            "--out", os.path.join(root, "tune.md")])
+    launches = check_no_launch("phase 46: stage-3 sweep")
+    for r in rows:
+        if "error" in r or not 0 < r["mfu"] <= 1:
+            fail(f"phase 46: bad row {r}")
+    ms = {(r["batch"], r["remat"]): r["step_ms"] for r in rows}
+    for b in sorted({r["batch"] for r in rows}):
+        if not ms[(b, True)] > ms[(b, False)]:
+            fail(f"phase 46: remat at batch {b} took {ms[(b, True)]:.2f} ms "
+                 f"against {ms[(b, False)]:.2f} without")
+    for r in rows:
+        log(f"phase 46: IR_SE_50 bf16 batch {r['batch']} remat "
+            f"{int(r['remat'])}: {r['step_ms']:.2f} ms a step, "
+            f"{r['imgs_per_sec']:.1f} images/s, {r['tflops_per_step']:.3f} "
+            f"TFLOP a step, mfu {r['mfu']:.4f}")
+    return {"rows": rows, "launches": launches}
+
+
+def phase_spatial_tune() -> dict:
+    """Phases 45-46."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = {"spatial": phase_spatial(root)}
+    torch.cuda.empty_cache()
+    out["tune"] = phase_tune()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phases 45-46 in {out['seconds']:.1f} s")
+    return out
+
+
+def spatial_launches(st: dict) -> dict:
+    """Rank 0's launches summed over phase 45's runs, per kernel."""
+    runs = st["spatial"]["runs"].values()
+    return {k: sum(r["ranks"][0]["launches"][k] for r in runs)
+            for k in KERNELS}
+
+
+def spatial_main():
+    """``--spatial``: the kernels' build and phases 45-46 alone."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on the GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    st = phase_spatial_tune()
+    print(json.dumps({"spatial_tune": st, "launches_spatial":
+                      spatial_launches(st)}))
+    print(nvidia_smi_line())
+
+
 def zoo_launches(zoo: dict) -> dict:
     """B1/B1b/B2/B2b launches summed over phases 28-32's recorded counts."""
     found = []
@@ -4819,6 +4984,8 @@ def main():
     log(f"phases 37-40 in {time.perf_counter() - t_serving:.1f} s")
     parallel = phase_parallel()
     par_launches = parallel_launches(parallel)
+    spatial_tune = phase_spatial_tune()
+    sp_launches = spatial_launches(spatial_tune)
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -4863,6 +5030,10 @@ def main():
             # step checked to be 0; one rank's launches of a two-rank
             # stage-1 R1 + path-length iteration and e4e encoder step
             "launches_parallel": par_launches[name],
+            # phase 45: one rank's launches over its spatial runs, each
+            # equal to the one process's; phase 46: checked to be 0
+            "launches_spatial": sp_launches[name],
+            "launches_tune": spatial_tune["tune"]["launches"][name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -4880,6 +5051,7 @@ def main():
     print(json.dumps({"host_data": host}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"spatial_tune": spatial_tune}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4965,6 +5137,8 @@ if __name__ == "__main__":
         b2_paths_main()
     elif sys.argv[1:] == ["--parallel"]:
         parallel_main()
+    elif sys.argv[1:] == ["--spatial"]:
+        spatial_main()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     else:

@@ -391,23 +391,19 @@ class Generator(nn.Module):
                         device=self.input.input.device)
         return self.style_mlp(z).mean(dim=0, keepdim=True)
 
-    def forward(self, styles: Union[torch.Tensor, List[torch.Tensor]],
-                return_latents: bool = False,
+    def latents(self, styles: Union[torch.Tensor, List[torch.Tensor]],
                 inject_index: Optional[int] = None,
                 truncation: float = 1.0,
                 truncation_latent: Optional[torch.Tensor] = None,
                 input_is_latent: bool = False,
-                noise: Optional[List[torch.Tensor]] = None,
-                randomize_noise: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """The (N, n_latent, D) latents ``forward`` synthesises from:
+        the style MLP, truncation and style mixing."""
         if not isinstance(styles, (list, tuple)):
             styles = [styles]
         if not input_is_latent:
             styles = [self.style_mlp(s) for s in styles]
-        if noise is None:
-            noise = ([None] * self.num_layers if randomize_noise else
-                     [getattr(self.noises, f"noise_{i}")
-                      for i in range(self.num_layers)])
         if truncation < 1:
             styles = [truncation_latent + truncation * (s - truncation_latent)
                       for s in styles]
@@ -427,6 +423,23 @@ class Generator(nn.Module):
             pos = torch.arange(self.n_latent, device=styles[0].device)
             latent = torch.where(pos[None, :, None] < idx,
                                  styles[0][:, None, :], styles[1][:, None, :])
+        return latent
+
+    def forward(self, styles: Union[torch.Tensor, List[torch.Tensor]],
+                return_latents: bool = False,
+                inject_index: Optional[int] = None,
+                truncation: float = 1.0,
+                truncation_latent: Optional[torch.Tensor] = None,
+                input_is_latent: bool = False,
+                noise: Optional[List[torch.Tensor]] = None,
+                randomize_noise: bool = True,
+                generator: Optional[torch.Generator] = None):
+        latent = self.latents(styles, inject_index, truncation,
+                              truncation_latent, input_is_latent, generator)
+        if noise is None:
+            noise = ([None] * self.num_layers if randomize_noise else
+                     [getattr(self.noises, f"noise_{i}")
+                      for i in range(self.num_layers)])
         out = self.input(latent.shape[0], latent.dtype)
         out = self.conv1(out, latent[:, 0], noise[0], generator)
         skip = self.to_rgb1(out, latent[:, 1])

@@ -1,8 +1,8 @@
 """Multi-process worker: the trainers' mesh paths run end to end over
 several processes, the port of ``stylegan_for_facerec_tpu/parallel/
 _mp_worker.py`` (a tiny stage-3 run over a multi-process mesh) extended
-to the sharded head, BatchNorm, the sharded export, stage 1, stage 2 and
-e4e.
+to the sharded head, BatchNorm, the sharded export, stage 1, stage 2,
+e4e and spatially sharded synthesis.
 
 Each task is a function ``task(mesh, args) -> dict`` that builds its model
 from a seed, draws its global batches from a seed, steps the rank's slice
@@ -27,8 +27,9 @@ gives rank r card r; ``cuda:0`` puts every rank on card 0. Prints
 ``MPSTEP <task> <step> <loss>`` per step and ``MP_WORKER_OK`` at the
 end; each rank saves its results to ``<out>/rank<r>.pt`` (rank 0 with
 its end state, every rank with a digest of its own).
-``tests/test_torch_parallel.py``, ``tests/test_torch_ddp.py`` and
-``chip_smoke.py`` phases 43-44 drive it.
+``tests/test_torch_parallel.py``, ``tests/test_torch_ddp.py``,
+``tests/test_torch_spatial.py``, ``chip_smoke.py`` phases 43-45 and
+``scripts/ddp_cards.py`` drive it.
 """
 
 from __future__ import annotations
@@ -505,12 +506,158 @@ def task_stage3_rate(mesh, args):
             per_rank * (1 if mesh is None else mesh.world.size) / ms * 1e3}
 
 
+# -- spatially sharded synthesis -------------------------------------------
+
+# (name, family, resolution, batch, dtype, noise, min_rows_per_shard) of
+# each run: full size at the published widths (the ADA G at 1024 with
+# channel_base 16384 and channel_max 512, the rosinality G in config-f,
+# the StyleGAN1-layer ADA G at 256); micro at the JAX package's test sizes
+# (z/w 32, 2 mapping layers, 64 px; the rosinality G with channel
+# multiplier 1), with runs whose 4x4 and 8x8 stay replicated
+SPATIAL_RUNS = {
+    "full": (("ada_f32_const", "ada", 1024, 4, "float32", "const", 1),
+             ("ada_f32_random", "ada", 1024, 4, "float32", "random", 1),
+             ("ada_bf16_const", "ada", 1024, 4, "bfloat16", "const", 1),
+             ("ada_bf16_random", "ada", 1024, 4, "bfloat16", "random", 1),
+             ("rosi_f32_const", "rosinality", 1024, 2, "float32", "const",
+              1),
+             ("rosi_f32_random", "rosinality", 1024, 2, "float32",
+              "random", 1),
+             ("sg1_f32_const", "stylegan1", 256, 8, "float32", "const", 1)),
+    "micro": (("ada_f32_const", "ada", 64, 2, "float32", "const", 1),
+              ("ada_f32_const_min4", "ada", 64, 2, "float32", "const", 4),
+              ("ada_f32_random", "ada", 64, 2, "float32", "random", 1),
+              ("sg1_f32_const", "stylegan1", 64, 2, "float32", "const", 1),
+              ("rosi_f32_const", "rosinality", 64, 2, "float32", "const",
+               1),
+              ("rosi_f32_const_min4", "rosinality", 64, 2, "float32",
+               "const", 4),
+              ("rosi_f32_random", "rosinality", 64, 2, "float32", "random",
+               1))}
+# the runs of scripts/ddp_cards.py over one rank a card: the ADA and the
+# rosinality G at 1024 (const noise), batch 1 and 4
+SPATIAL_CARD_RUNS = tuple(
+    (f"{tag}_f32_batch{b}", family, 1024, b, "float32", "const", 1)
+    for tag, family in (("ada", "ada"), ("rosi", "rosinality"))
+    for b in (1, 4))
+SPATIAL_REPS = 3        # timed calls a run on a card (none on the CPU)
+
+
+def spatial_model(family: str, resolution: int, size: str):
+    """A generator of ``family`` ("ada", "stylegan1" or "rosinality"),
+    weights from seed 0 drawn on the CPU, then every bias, noise strength
+    and noise weight outside the mapping/style layers (zeros at init)
+    moved by 0.1 N(0, 1) from seed 1, so their paths count; eval mode."""
+    from ..models import stylegan2, stylegan2_ada
+    from ..nn.initializers import init_weights
+    dim, mlp = (32, 2) if size == "micro" else (512, 8)
+    if family == "rosinality":
+        g = stylegan2.Generator(resolution, dim, mlp,
+                                1 if size == "micro" else 2)
+    else:
+        g = stylegan2_ada.Generator(
+            dim, dim, mlp, resolution, synthesis_layer="stylegan1"
+            if family == "stylegan1" else "stylegan2")
+    init_weights(g, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in g.modules():
+            if isinstance(mod, (stylegan2.EqualLinear,
+                                stylegan2_ada.FullyConnectedLayer)):
+                continue
+            for k, p in mod.named_parameters(recurse=False):
+                if k in ("bias", "noise_strength") or isinstance(
+                        mod, stylegan2.NoiseInjection):
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return g.eval()
+
+
+def spatial_inputs(batch: int, size: str) -> np.ndarray:
+    """z (batch, z_dim) from seed 31."""
+    dim = 32 if size == "micro" else 512
+    return np.random.RandomState(31).randn(batch, dim).astype(np.float32)
+
+
+def spatial_kwargs(family: str, noise: str) -> dict:
+    if family == "rosinality":
+        return {"randomize_noise": noise == "random"}
+    return {"noise_mode": noise}
+
+
+def task_spatial(mesh, args, runs=None):
+    """Every run of ``runs`` (default ``SPATIAL_RUNS[args.size]``): with a
+    mesh, the rank's band through ``make_spatial_synthesis`` over the data
+    axis, its rows, the bands each block's output had and whether
+    ``gather_rows`` gives an image holding the band; without, one
+    process's whole image. Each with its B1/B1b/B2/B2b launches (of the first call) and,
+    on a card, ms a call (the median of ``SPATIAL_REPS`` after it) and the
+    peak GiB above the weights. Random noise comes from a generator
+    seeded 7 on the run's device."""
+    from .spatial import gather_rows, make_spatial_synthesis
+    out, model, key = {}, None, None
+    cuda = torch.device(args.device).type == "cuda"
+    for name, family, res, batch, dtype, noise, min_rows in \
+            runs or SPATIAL_RUNS[args.size]:
+        if key != (family, res):
+            model = None
+            _release()
+            model = spatial_model(family, res, args.size).to(args.device)
+            key = (family, res)
+        model.to(getattr(torch, dtype))
+        z = torch.from_numpy(spatial_inputs(batch, args.size)).to(
+            args.device, getattr(torch, dtype))
+        kw = spatial_kwargs(family, noise)
+        if mesh is None:
+            def run(gen):
+                with torch.no_grad():
+                    return model(z, generator=gen, **kw)
+        else:
+            synth = make_spatial_synthesis(model, mesh, "data", min_rows,
+                                           **kw)
+
+            def run(gen):
+                return synth(z, gen)
+        if cuda:
+            torch.cuda.synchronize(args.device)
+            torch.cuda.reset_peak_memory_stats(args.device)
+            base = torch.cuda.memory_allocated(args.device)
+        before = _launches()
+        img = run(torch.Generator(args.device).manual_seed(7))
+        launches = _minus(_launches(), before)
+        r = {"image": img, "launches": launches, "ms": None,
+             "peak_gib": None, "dtype": dtype}
+        if cuda:
+            torch.cuda.synchronize(args.device)
+            r["peak_gib"] = (torch.cuda.max_memory_allocated(args.device)
+                             - base) / 2 ** 30
+            ms = []
+            for _ in range(SPATIAL_REPS):
+                gen = torch.Generator(args.device).manual_seed(7)
+                torch.cuda.synchronize(args.device)
+                t0 = time.perf_counter()
+                run(gen)
+                torch.cuda.synchronize(args.device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            r["ms"] = float(np.median(ms))
+        if mesh is not None:
+            lo, hi = synth.policy.rows(img.shape[2] * mesh.data.size)
+            whole = gather_rows(img, mesh)
+            r.update(rows=(lo, hi), bands=list(synth.bands),
+                     gather_ok=whole.shape[2] == img.shape[2]
+                     * mesh.data.size
+                     and torch.equal(whole[:, :, lo:hi], img))
+        out[name] = r
+    return out
+
+
 TASKS = {"head": task_head, "bn": task_bn, "export": task_export,
          "stage3": task_stage3, "stage3_rate": task_stage3_rate,
          "stage3_sync": lambda mesh, args: task_stage3(mesh, args, True),
          "stage3_bf16": lambda mesh, args: task_stage3(
              mesh, args, compute_dtype="bfloat16"),
-         "stage1": task_stage1,
+         "stage1": task_stage1, "spatial": task_spatial,
+         "spatial_cards": lambda mesh, args: task_spatial(
+             mesh, args, SPATIAL_CARD_RUNS),
          "stage2": lambda mesh, args: task_coach("stage2", mesh, args),
          "e4e": lambda mesh, args: task_coach("e4e", mesh, args)}
 

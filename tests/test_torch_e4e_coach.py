@@ -62,8 +62,9 @@ from stylegan_for_facerec_tpu.train.stage2_e4e import E4eConfig as JConfig
 from stylegan_for_facerec_torch.train.stage2_e4e import E4eCoach, E4eConfig
 from stylegan_for_facerec_torch.utils.convert import (load_e4e_from_jax,
                                                       load_from_jax)
-from test_torch_stage2 import (_check_updates, _close_scaled, _lpips_pair,
-                               _torch_sd)
+from test_torch_stage2 import (_close_scaled, _lpips_pair, _torch_sd,
+                               _update_ratios)
+from torch_mp_shared import shared_result
 
 CFG = dict(output_size=32, n_iters_per_batch=2, lpips_lambda=0.8,
            l2_lambda=1.0, target_size=32, compute_dtype="float32",
@@ -139,7 +140,41 @@ def _port_step(tlp, params, state, d_params, avg, seed, dtype):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
+    """The comparisons, computed once a session (the JAX coach's train
+    step compiles for minutes at ~13 GB), with a coach of the same
+    configuration for the tests that read its structure."""
+    out = shared_result(tmp_path_factory, "e4e_coach_run", _reduced)
+    out["tc"] = E4eCoach(E4eConfig(**CFG), lpips_fn=None, device="cpu")
+    return out
+
+
+def _reduced():
+    """``_run``'s comparisons, each reduced to what its test asserts on
+    (the whole state dicts are ~0.5 GB each, 1 GB in float64): the update
+    ratios of ``_update_ratios``, the encoder step's BatchNorm running
+    statistics (port, JAX) and the decoder tensors it moved."""
+    out = _run()
+    del out["tc"]
+    sd0 = out.pop("sd0")
+    enc = out["enc"]
+    want_sd, got_sd = enc.pop("sd"), enc.pop("t_sd")
+    enc["updates"] = _update_ratios(sd0, want_sd, got_sd, "encoder.")
+    enc["running"] = {k: (got_sd[k], v) for k, v in want_sd.items()
+                      if k.endswith(("running_mean", "running_var"))}
+    enc["decoder_moved"] = [k for k, v in sd0.items()
+                            if k.startswith("decoder.") and not
+                            np.array_equal(got_sd[k], v, equal_nan=True)]
+    for r in out["other"].values():
+        r["updates"] = _update_ratios(sd0, r.pop("sd"), r.pop("t_sd"),
+                                      "encoder.")
+    f = out["f64"]
+    out["f64"] = {"updates": _update_ratios(sd0, f["f64"], f["f32"],
+                                            "encoder.")}
+    return out
+
+
+def _run():
     jlp, tlp = _lpips_pair()
     jc = JCoach(JConfig(**CFG), lpips_fn=jlp)
     params, state, opt, d_params, d_opt = jc.init(jax.random.key(0))
@@ -261,14 +296,15 @@ def test_encoder_step_matches_jax(run):
         np.testing.assert_allclose(r["t_logs"][k], v, rtol=1e-4, err_msg=k)
     assert r["logs"]["total_delta_loss"] > 0
     _close_scaled(r["t_yhat"], r["y_hat"], 1e-4, "y_hat")
-    n = _check_updates(run["sd0"], r["sd"], r["t_sd"], "encoder.")
+    worst, n = r["updates"]
+    assert worst[0][0] <= 1.0, worst[:5]
     assert n == len(list(run["tc"].model.encoder.parameters()))
-    for k, v in r["sd"].items():
+    for k, (got, v) in r["running"].items():
         if k.endswith("running_var"):
-            _close_scaled(r["t_sd"][k], v, 1e-4, k)
-        elif k.endswith("running_mean"):
-            spread = np.sqrt(np.abs(r["sd"][k[:-4] + "var"]).max())
-            err = np.abs(r["t_sd"][k] - v).max()
+            _close_scaled(got, v, 1e-4, k)
+        else:
+            spread = np.sqrt(np.abs(r["running"][k[:-4] + "var"][1]).max())
+            err = np.abs(got - v).max()
             assert err <= 1e-4 * spread, (k, err, spread)
 
 
@@ -276,15 +312,16 @@ def test_encoder_step_matches_jax(run):
 def test_encoder_step_matches_jax_at_other_seeds(run, seed):
     r = run["other"][seed]
     np.testing.assert_allclose(r["t_loss"], r["loss"], rtol=1e-4)
-    n = _check_updates(run["sd0"], r["sd"], r["t_sd"], "encoder.")
+    worst, n = r["updates"]
+    assert worst[0][0] <= 1.0, worst[:5]
     assert n == len(list(run["tc"].model.encoder.parameters()))
 
 
 def test_encoder_step_is_f32_round_off(run):
     """At FLIP_SEED the port's f32 step agrees with its float64 step to the
     tolerance that holds it against JAX elsewhere."""
-    r = run["f64"]
-    n = _check_updates(run["sd0"], r["f64"], r["f32"], "encoder.")
+    worst, n = run["f64"]["updates"]
+    assert worst[0][0] <= 1.0, worst[:5]
     assert n == len(list(run["tc"].model.encoder.parameters()))
 
 
@@ -293,9 +330,7 @@ def test_encoder_step_leaves_d_and_decoder_alone(run):
     assert all(g is None for g in r["d_grads"])
     # D's parameters require grad again after the step, for the D step
     assert all(r["d_requires_grad"])
-    for k, v in run["sd0"].items():
-        if k.startswith("decoder."):
-            np.testing.assert_array_equal(r["t_sd"][k], v, err_msg=k)
+    assert r["decoder_moved"] == [], r["decoder_moved"][:5]
 
 
 def test_validation_includes_the_adversarial_term(run):

@@ -24,6 +24,7 @@ import torch
 from stage1_parity import (d_draws, jax_trainer_and_state, port_trainer,
                            rel_err)
 from stylegan_for_facerec_torch.utils.convert import from_jax
+from torch_mp_shared import shared_result
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,9 +46,15 @@ def jax_side():
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "r1"])
-def case(request, jax_side):
-    """(port loss, rt, D grads by torch name; JAX's) for one D loss."""
-    do_r1 = request.param
+def case(request, tmp_path_factory):
+    """(port loss, rt, D grads by torch name; JAX's) for one D loss,
+    computed once a session."""
+    return shared_result(
+        tmp_path_factory, f"stage1_dstep_{request.param}",
+        lambda: _case(request.getfixturevalue("jax_side"), request.param))
+
+
+def _case(jax_side, do_r1):
     _, st, fn = jax_side
     rs = np.random.RandomState(1)
     reals = rs.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)

@@ -31,6 +31,7 @@ import torch
 from stage1_parity import (g_draws, jax_trainer_and_state, port_trainer,
                            rel_err)
 from stylegan_for_facerec_torch.utils.convert import from_jax
+from torch_mp_shared import shared_result
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,8 +61,15 @@ def _double(obj):
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "plp"])
-def case(request, jax_side):
-    do_plp = request.param
+def case(request, tmp_path_factory):
+    """One G loss's comparison, computed once a session (the JAX loss's
+    compile with path length takes a minute and more)."""
+    return shared_result(
+        tmp_path_factory, f"stage1_gstep_{request.param}",
+        lambda: _case(request.getfixturevalue("jax_side"), request.param))
+
+
+def _case(jax_side, do_plp):
     _, st, fn = jax_side
     z = np.random.RandomState(2).randn(4, 512).astype(np.float32)
     rng = jax.random.key(6)
