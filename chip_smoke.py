@@ -187,7 +187,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
  32. the stage-3 CLI on the card from a reference-layout torch .pt (a
      seeded PSpFaceRec's encoder.* state_dict under the reference names):
      the input layer and body loaded bit for bit, 2 steps, the frozen
-     body unchanged.
+     body unchanged; then test_rfw on the run's newest checkpoint file
+     over 600 seeded pairs (the run directory is kept for phase 47).
  33. MTCNN with its real weights: PNet at every pyramid shape of a 250²
      image, RNet on 24² and ONet on 48² batches, card vs CPU; the whole
      cascade on seeded drawn faces (boxes must reach ONet), card vs CPU
@@ -213,10 +214,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      batch 256;
  36. does the loader keep up with stage 3: ResNet_50 and the recipe's
      PSpFaceRec (IR-SE-50) bf16 batch-256 steps fed by PackedLoader +
-     device_prefetch from 2048 page-cached packed images, against the
+     device_prefetch (pinning and copying on its producer thread) at
+     depth 1, 2 and 4 from 2048 page-cached packed images, against the
      same steps on a resident batch: ms a step over two epochs (two epoch
      restarts), the host's wait for a batch, and the device's idle share
-     over one epoch's steps.
+     over one epoch's steps; at each depth the card's batches hash as a
+     CPU pass over the same loader does, the pinning runs on the producer
+     thread, and an iterator that fails after 3 batches delivers those 3
+     on the card, then raises RuntimeError("prefetch producer failed").
  37. the int8 embedder: the recipe's PSpFaceRec (IR-SE-50 at 112, seeded
      weights and BatchNorm statistics) calibrated on 4 batches of 8 and
      stripped (the weight bytes, the f32 model's torch.cuda.
@@ -285,13 +290,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
      on: ms a step, images/s, FlopCounterMode TFLOP a step and MFU
      against 989e12, in (0, 1]; no error row; remat slower than no remat
      at each batch.
-Phases 28-37, 39, 41, 42, 44 and 46 launch none of B1, B1b, B2 or B2b.
+ 47. the last slice: device_augment on the card at batch 256, 128² ->
+     112, uint8 and bf16, over 4096 images: every output a window of its
+     input, flipped or not, exactly (offsets read from images whose
+     pixels hold their coordinates, then random images held to those
+     windows), every offset 0-16 seen on each side, the flip share within
+     0.5 +- 0.05; modulated_conv2d against modulated_conv2d_grouped at
+     the ADA G's widths (512 -> 512, 3x3, demodulated, batch 8) at 4² to
+     256², f32 with TF32 off within 1e-5 of scale, bf16 measured;
+     export_jittable of a plain function that calls a seeded 256² ADA G,
+     bit-equal to eager with B1/B2 launched as eager's; test_rfw with
+     --checkpoint set to phase 32's run directory (resolved to its newest
+     checkpoint) gives phase 32's result.
+Phases 28-37, 39, 41, 42, 44 and 46 launch none of B1, B1b, B2 or B2b;
+phase 47 launches B1 and B2 only in its generator.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, the one before that the card's name and power limit
 as nvidia-smi reports them, and the ones before that the stage-1, stage-3,
 e4e, phase 24-27 ("generators_fid_eval"), phase 28-32 ("stage3_zoo"),
 phase 33-36 ("host_data"), phase 37-40 ("serving"), phase 41-44
-("parallel") and phase 45-46 ("spatial_tune") numbers as JSON. Exits
+("parallel"), phase 45-46 ("spatial_tune") and phase 47 ("last_slice")
+numbers as JSON. Exits
 nonzero without a GPU.
 
 --parallel builds the kernels and runs phases 41-44 alone; --spatial
@@ -319,6 +338,8 @@ import contextlib
 import copy
 from concurrent.futures import ThreadPoolExecutor
 import dataclasses
+import hashlib
+import itertools
 import json
 import math
 import os
@@ -326,14 +347,17 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from stylegan_for_facerec_torch.data import native_loader
-from stylegan_for_facerec_torch.data.dataset import DataLoader, FacesDataset
+from stylegan_for_facerec_torch.data.dataset import (DataLoader, FacesDataset,
+                                                     device_augment)
 from stylegan_for_facerec_torch.data.packed import (PackedLoader,
                                                     PackedTrainDataset,
                                                     device_prefetch,
@@ -368,12 +392,15 @@ from stylegan_for_facerec_torch.tools import (calc_losses_on_images,
                                               export_model, make_filelist,
                                               mtcnn_crop_align, pack_rfw,
                                               pack_train, rfw_crop_align,
-                                              test_rb_webface, train_stage3)
+                                              test_rb_webface, test_rfw,
+                                              train_stage3)
 from stylegan_for_facerec_torch.tools import convergence_run, tune_stage3
 from stylegan_for_facerec_torch.parallel import _mp_worker as mp_worker
 from stylegan_for_facerec_torch.parallel import mesh as mesh_lib
 from stylegan_for_facerec_torch.nn.initializers import init_weights
 from stylegan_for_facerec_torch.ops import build, fused_act, resample
+from stylegan_for_facerec_torch.ops.modconv import (modulated_conv2d,
+                                                    modulated_conv2d_grouped)
 from stylegan_for_facerec_torch.ops.fused_act import (bias_act, bias_act_grad,
                                                       bias_act_grad_plain,
                                                       bias_act_plain)
@@ -524,6 +551,8 @@ RA_IMAGES = 512
 FEED_BACKBONES = ("ResNet_50", "pSp")
 FEED_EPOCH = LOADER_IMAGES // LOADER_BATCH      # steps an epoch: 8
 FEED_STEPS = 2 * FEED_EPOCH
+FEED_DEPTHS = (1, 2, 4)                         # device_prefetch's depth
+FEED_FAIL_AFTER = 3
 
 
 def fail(msg: str):
@@ -3547,6 +3576,12 @@ def phase_rb_webface(checkpoint: dict) -> dict:
     return out
 
 
+# phase 32's stage-3 run directory, its pairs and test_rfw's result on its
+# newest checkpoint file, for phase 47
+HANDOFF: dict = {}
+HANDOFF_PAIRS = 600
+
+
 def phase_handoff() -> dict:
     """Phase 32: the stage-3 CLI on the card from a reference-layout .pt
     (a seeded full-width PSpFaceRec's ``encoder.*`` state_dict under the
@@ -3554,7 +3589,9 @@ def phase_handoff() -> dict:
     keys beside them), 2 steps at batch S3_BATCH from packed shards: the
     handoff loads ``input_layer`` and ``body`` bit for bit (buffers
     included), the CLI's checkpoint keeps the frozen body's parameters bit
-    for bit and not the file's output layer; no launch."""
+    for bit and not the file's output layer; no launch. Then test_rfw on
+    that checkpoint file over HANDOFF_PAIRS seeded pairs, the result phase
+    47 holds test_rfw on the run directory to."""
     src = PSpFaceRec(size=112)
     init_weights(src, torch.Generator().manual_seed(90))
     seeded_batchnorm_(src, 91)
@@ -3565,53 +3602,66 @@ def phase_handoff() -> dict:
     sd = {f"encoder.{k}": v for k, v in src.encoder.state_dict().items()}
     sd["decoder.synthesis.b4.const"] = torch.zeros(512, 4, 4)
     out = {}
-    with tempfile.TemporaryDirectory() as root:
-        path = os.path.join(root, "reference.pt")
-        torch.save({"state_dict": sd, "latent_avg": torch.zeros(18, 512)},
-                   path)
-        fresh = PSpFaceRec(size=112).cuda()
-        train_stage3.load_encoder_handoff(fresh, path)
-        for part in ("input_layer", "body"):
-            got = getattr(fresh.encoder, part).state_dict()
-            for k, v in getattr(src.encoder, part).state_dict().items():
-                if not torch.equal(got[k].cpu(), v):
-                    fail(f"phase 32: {part}.{k} was not loaded bit for bit")
-        del fresh
-        x, y = stage3_inputs(2 * S3_BATCH, seed=93)
-        shards = os.path.join(root, "shards")
-        write_packed(shards, x.numpy(), y.numpy() % 16,
-                     [str(i) for i in range(16)], shard_size=16)
-        cfg = dict(json.load(open(STAGE3_CONFIG)), data_root=root,
-                   train_subdir="shards", model_root=os.path.join(root, "runs"),
-                   name="handoff", batch_size=S3_BATCH, eval_benchmarks=[])
-        cfg_path = os.path.join(root, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        reset_launches()
-        t0 = time.perf_counter()
-        train_stage3.main(["--config", cfg_path, "--encoder_checkpoint", path,
-                           "--max_steps", "2", "--device", "cuda"])
-        torch.cuda.synchronize()
-        out["cli_s"] = time.perf_counter() - t0
-        out["launches"] = read_launches()
-        run = os.path.join(root, "runs", "handoff")
-        ck = torch.load(os.path.join(run, sorted(
-            f for f in os.listdir(run) if f.startswith("step_"))[-1]),
-            map_location="cpu", weights_only=True)["backbone"]
-        body = [k for k, _ in src.encoder.body.named_parameters()]
-        changed = [k for k in body if not torch.equal(
-            ck[f"encoder.body.{k}"], sd[f"encoder.body.{k}"])]
-        head_kept = [k for k, _ in src.encoder.output_layer.named_parameters()
-                     if torch.equal(ck[f"encoder.output_layer.{k}"],
-                                    sd[f"encoder.output_layer.{k}"])]
-        if changed or head_kept or any(out["launches"].values()):
-            fail(f"phase 32: body changed {changed[:3]}, output layer from "
-                 f"the file {head_kept[:3]}, launches {out['launches']}")
+    # kept for phase 47, which reads the run directory again; removed
+    # at exit
+    keep = tempfile.TemporaryDirectory()
+    HANDOFF["tmp"] = keep
+    root = keep.name
+    path = os.path.join(root, "reference.pt")
+    torch.save({"state_dict": sd, "latent_avg": torch.zeros(18, 512)},
+               path)
+    fresh = PSpFaceRec(size=112).cuda()
+    train_stage3.load_encoder_handoff(fresh, path)
+    for part in ("input_layer", "body"):
+        got = getattr(fresh.encoder, part).state_dict()
+        for k, v in getattr(src.encoder, part).state_dict().items():
+            if not torch.equal(got[k].cpu(), v):
+                fail(f"phase 32: {part}.{k} was not loaded bit for bit")
+    del fresh
+    x, y = stage3_inputs(2 * S3_BATCH, seed=93)
+    shards = os.path.join(root, "shards")
+    write_packed(shards, x.numpy(), y.numpy() % 16,
+                 [str(i) for i in range(16)], shard_size=16)
+    cfg = dict(json.load(open(STAGE3_CONFIG)), data_root=root,
+               train_subdir="shards", model_root=os.path.join(root, "runs"),
+               name="handoff", batch_size=S3_BATCH, eval_benchmarks=[])
+    cfg_path = os.path.join(root, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    reset_launches()
+    t0 = time.perf_counter()
+    train_stage3.main(["--config", cfg_path, "--encoder_checkpoint", path,
+                       "--max_steps", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    out["cli_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    run = os.path.join(root, "runs", "handoff")
+    step_file = os.path.join(run, sorted(
+        f for f in os.listdir(run) if f.startswith("step_"))[-1])
+    ck = torch.load(step_file, map_location="cpu",
+                    weights_only=True)["backbone"]
+    body = [k for k, _ in src.encoder.body.named_parameters()]
+    changed = [k for k in body if not torch.equal(
+        ck[f"encoder.body.{k}"], sd[f"encoder.body.{k}"])]
+    head_kept = [k for k, _ in src.encoder.output_layer.named_parameters()
+                 if torch.equal(ck[f"encoder.output_layer.{k}"],
+                                sd[f"encoder.output_layer.{k}"])]
+    if changed or head_kept or any(out["launches"].values()):
+        fail(f"phase 32: body changed {changed[:3]}, output layer from "
+             f"the file {head_kept[:3]}, launches {out['launches']}")
+    images, issame = verification_pairs(HANDOFF_PAIRS, seed=94)
+    np.savez(os.path.join(root, "rfw_African.npz"), images=images,
+             issame=issame)
+    out["rfw"] = test_rfw.main(["--checkpoint", step_file, "--data_root",
+                                root, "--benchmarks", "rfw_African",
+                                "--device", "cuda"])
+    HANDOFF.update(run=run, data_root=root, rfw=out["rfw"])
     out["body_tensors"] = len(body)
     log(f"phase 32: stage-3 CLI from a reference-layout .pt on the card, 2 "
         f"steps in {out['cli_s']:.1f} s: input_layer and body loaded bit for "
         f"bit, the frozen body's {len(body)} parameters unchanged, the "
-        f"output layer fresh; launches {out['launches']}")
+        f"output layer fresh; launches {out['launches']}; test_rfw on its "
+        f"last checkpoint over {HANDOFF_PAIRS} pairs: {out['rfw']}")
     return out
 
 
@@ -4034,35 +4084,113 @@ def phase_loaders(root: str) -> dict:
     return out
 
 
+def batch_digest(x: torch.Tensor, y: torch.Tensor) -> str:
+    """sha1 of a batch's image and label bytes, read back to the host."""
+    h = hashlib.sha1(x.cpu().numpy().tobytes())
+    h.update(y.cpu().numpy().astype(np.int32).tobytes())
+    return h.hexdigest()
+
+
+def prefetch_checks(pds) -> dict:
+    """Phase 36's checks of device_prefetch at each FEED_DEPTHS depth:
+    FEED_STEPS card batches (two epochs of PackedLoader's seed) hash as a
+    CPU pass over the same loader does; the pinning runs on the producer
+    thread, not the consumer's; an iterator that fails after
+    FEED_FAIL_AFTER batches delivers those batches on the card, then
+    raises RuntimeError("prefetch producer failed") from its error."""
+    want = [batch_digest(torch.from_numpy(x), torch.from_numpy(y))
+            for _ in range(FEED_STEPS // FEED_EPOCH)
+            for x, y in PackedLoader(pds, LOADER_BATCH)]
+    out = {}
+    pin = torch.Tensor.pin_memory
+    pinned_on = set()
+
+    def pin_recorded(t, *a, **k):
+        pinned_on.add(threading.get_ident())
+        return pin(t, *a, **k)
+
+    for depth in FEED_DEPTHS:
+        def epochs():
+            for _ in range(FEED_STEPS // FEED_EPOCH):
+                yield from PackedLoader(pds, LOADER_BATCH)
+
+        pinned_on.clear()
+        with mock.patch.object(torch.Tensor, "pin_memory", pin_recorded):
+            got = [batch_digest(x, y) for x, y in
+                   device_prefetch(epochs(), depth=depth)]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"phase 36: depth {depth}: {len(got)} card batches against "
+                 f"{len(want)} of the CPU pass, differing at {bad[:5]}")
+        if not pinned_on or threading.get_ident() in pinned_on:
+            fail(f"phase 36: depth {depth}: pinned on threads {pinned_on}, "
+                 f"the consumer is {threading.get_ident()}")
+
+        def failing():
+            loader = PackedLoader(pds, LOADER_BATCH)
+            yield from itertools.islice(loader, FEED_FAIL_AFTER)
+            raise ValueError("injected failure")
+
+        seen, err = [], None
+        try:
+            for x, y in device_prefetch(failing(), depth=depth):
+                if x.device.type != "cuda":
+                    fail(f"phase 36: depth {depth}: a batch on {x.device}")
+                seen.append(batch_digest(x, y))
+        except RuntimeError as e:
+            err = e
+        if (err is None or str(err) != "prefetch producer failed"
+                or not isinstance(err.__cause__, ValueError)
+                or seen != want[:FEED_FAIL_AFTER]):
+            fail(f"phase 36: depth {depth}: a failure after "
+                 f"{FEED_FAIL_AFTER} batches gave {len(seen)} batches "
+                 f"(equal: {seen == want[:FEED_FAIL_AFTER]}) and {err!r}")
+        out[f"depth{depth}"] = {"batches_equal": len(got),
+                                "failure_after": len(seen)}
+    log(f"phase 36: device_prefetch at depths {list(FEED_DEPTHS)}: "
+        f"{FEED_STEPS} card batches each hash as the CPU pass does, pinned "
+        f"on the producer thread; a failure after {FEED_FAIL_AFTER} batches "
+        f"delivers them on the card, then RuntimeError('prefetch producer "
+        f"failed')")
+    return out
+
+
 def phase_loader_feed(packed: str) -> dict:
     """Phase 36: bf16 batch-256 stage-3 steps fed by PackedLoader +
-    device_prefetch against the same steps on a resident batch. The
-    shards were just written, so they sit in the page cache; the timed
-    steps span two epochs and the profiled ones one, each with the
-    epoch restarts its share of steps brings."""
+    device_prefetch at each FEED_DEPTHS depth against the same steps on a
+    resident batch, and prefetch_checks. The shards were just written, so
+    they sit in the page cache; the timed steps span two epochs and the
+    profiled ones one, each with the epoch restarts its share of steps
+    brings."""
     reset_launches()
     pds = PackedTrainDataset(packed)
-    out = {}
+    out = {"checks": prefetch_checks(pds)}
 
-    def batches():
+    def batches(depth):
         while True:
-            yield from device_prefetch(PackedLoader(pds, LOADER_BATCH))
+            yield from device_prefetch(PackedLoader(pds, LOADER_BATCH),
+                                       depth=depth)
 
     for name in FEED_BACKBONES:
         tr = stage3_trainer("cuda", "bfloat16", backbone=name)
         x, y = (t.cuda() for t in stage3_inputs(LOADER_BATCH, seed=36))
-        feed = batches()
         row = {}
-        for kind, take in (("resident", lambda: (x, y)),
-                           ("loader_fed", lambda: next(feed))):
+        runs = [("resident", None)] + [(f"loader_fed_depth{d}", d)
+                                       for d in FEED_DEPTHS]
+        for kind, depth in runs:
+            feed = None if depth is None else batches(depth)
+
+            def take():
+                return (x, y) if feed is None else next(feed)
+
             tr.train_step(*take(), 0)                            # warm-up
             torch.cuda.synchronize()
-            wait = 0.0          # host seconds spent getting the batches
+            waits = []          # host seconds spent getting each batch
             t0 = time.perf_counter()
             for i in range(FEED_STEPS):
                 tw = time.perf_counter()
                 batch = take()
-                wait += time.perf_counter() - tw
+                waits.append(time.perf_counter() - tw)
                 m = tr.train_step(*batch, i)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / FEED_STEPS
@@ -4079,19 +4207,27 @@ def phase_loader_feed(packed: str) -> dict:
                               steps, top=4, details=details)
             row[kind] = {"step_ms": dt * 1e3,
                          "images_per_s": LOADER_BATCH / dt,
-                         "host_wait_ms": wait * 1e3 / FEED_STEPS,
+                         "host_wait_ms": sum(waits) * 1e3 / FEED_STEPS,
+                         # an epoch's first batch waits for a cold pipeline
+                         "host_wait_median_ms": float(np.median(waits)) * 1e3,
                          "idle_share": 1 - details["device_ms"]
                          / details["wall_ms"]}
+            if feed is not None:
+                feed.close()
         out[name] = row
+        res = row["resident"]
         log(f"phase 36: {name} bf16 batch {LOADER_BATCH}, {LOADER_IMAGES} "
             f"page-cached images, {FEED_STEPS} steps: resident "
-            f"{row['resident']['step_ms']:.1f} ms a step (idle "
-            f"{row['resident']['idle_share']:.1%}), loader-fed "
-            f"{row['loader_fed']['step_ms']:.1f} ms (idle "
-            f"{row['loader_fed']['idle_share']:.1%}; the host waited "
-            f"{row['loader_fed']['host_wait_ms']:.2f} ms a step for its "
-            f"batch)")
-        del tr, feed
+            f"{res['step_ms']:.1f} ms a step (idle {res['idle_share']:.1%})"
+            + "".join(
+                f"; loader-fed at depth {d} "
+                f"{row[f'loader_fed_depth{d}']['step_ms']:.1f} ms (idle "
+                f"{row[f'loader_fed_depth{d}']['idle_share']:.1%}, the host "
+                f"waited {row[f'loader_fed_depth{d}']['host_wait_ms']:.2f} "
+                f"ms a step for its batch, median "
+                f"{row[f'loader_fed_depth{d}']['host_wait_median_ms']:.2f})"
+                for d in FEED_DEPTHS))
+        del tr
         torch.cuda.empty_cache()
     out["launches"] = check_no_launch("phase 36")
     return out
@@ -4844,6 +4980,189 @@ def spatial_main():
     print(nvidia_smi_line())
 
 
+# -- the last slice (phase 47) ------------------------------------------------
+
+AUG_BATCH, AUG_IMAGES, AUG_SIZE, AUG_CROP = 256, 4096, 128, 112
+AUG_FLIP_TOL = 0.05                     # the flip share within 0.5 +- this
+MODCONV_SIZES = (4, 8, 16, 32, 64, 128, 256)
+MODCONV_BATCH, MODCONV_WIDTH = 8, 512
+# the scaled-activation form against the per-sample-weight oracle, f32
+# with TF32 off: the same products summed in another order
+MODCONV_TOL = 1e-5
+
+
+def augment_check(dtype) -> dict:
+    """device_augment on the card over AUG_IMAGES images of AUG_SIZE² in
+    batches of AUG_BATCH: each output equals a window of its own input,
+    flipped or not, exactly. A batch runs twice from one generator seed:
+    on images whose pixels hold their row and column, which give each
+    image's offsets and flip, then on random images, which must equal
+    those windows."""
+    n, span = AUG_BATCH, AUG_SIZE - AUG_CROP + 1
+    idx = torch.arange(AUG_SIZE, device="cuda")
+    coded = torch.stack([idx[:, None].expand(AUG_SIZE, AUG_SIZE),
+                         idx[None, :].expand(AUG_SIZE, AUG_SIZE),
+                         torch.zeros(AUG_SIZE, AUG_SIZE, dtype=idx.dtype,
+                                     device="cuda")], -1)
+    coded = coded.expand(n, -1, -1, -1).to(dtype).contiguous()
+    gen, data_gen = (torch.Generator(device="cuda") for _ in range(2))
+    data_gen.manual_seed(470)
+    dys, dxs, flips = [], [], []
+    win = torch.arange(AUG_CROP, device="cuda")
+    rows = torch.arange(n, device="cuda")[:, None, None]
+    for b in range(AUG_IMAGES // n):
+        gen.manual_seed(4700 + b)
+        got = device_augment(coded, gen, AUG_CROP)
+        dy = got[:, 0, 0, 0].long()
+        left, right = got[:, 0, 0, 1].long(), got[:, 0, -1, 1].long()
+        flip = left > right
+        dx = torch.minimum(left, right)
+        ys = dy[:, None] + win
+        xs = dx[:, None] + win
+        xs = torch.where(flip[:, None], xs.flip(1), xs)
+        if not torch.equal(got, coded[rows, ys[:, :, None], xs[:, None, :]]):
+            fail(f"phase 47: device_augment {dtype}: an output is no "
+                 f"window of its coded input")
+        images = torch.randint(0, 256, (n, AUG_SIZE, AUG_SIZE, 3),
+                               generator=data_gen, device="cuda").to(dtype)
+        gen.manual_seed(4700 + b)
+        got = device_augment(images, gen, AUG_CROP)
+        if not torch.equal(got, images[rows, ys[:, :, None],
+                                       xs[:, None, :]]):
+            fail(f"phase 47: device_augment {dtype}: batch {b} is not the "
+                 f"windows its draws give")
+        dys.append(dy)
+        dxs.append(dx)
+        flips.append(flip)
+    dy, dx, flip = (torch.cat(t).cpu() for t in (dys, dxs, flips))
+    share = flip.float().mean().item()
+    seen = (sorted(set(dy.tolist())), sorted(set(dx.tolist())))
+    if seen != (list(range(span)), list(range(span))) or \
+            abs(share - 0.5) > AUG_FLIP_TOL:
+        fail(f"phase 47: device_augment {dtype}: offsets {seen}, flip "
+             f"share {share}")
+    ms = cuda_time_ms(lambda: device_augment(images, gen, AUG_CROP), reps=20)
+    return {"images": len(dy), "offsets_seen": span, "flip_share": share,
+            "ms": ms}
+
+
+def modconv_check() -> dict:
+    """modulated_conv2d against modulated_conv2d_grouped at the ADA G's
+    widths (MODCONV_WIDTH -> MODCONV_WIDTH, 3x3, demodulated, batch
+    MODCONV_BATCH) at each MODCONV_SIZES resolution: f32 (TF32 off)
+    within MODCONV_TOL of the oracle's scale, bf16 measured against it."""
+    g = torch.Generator(device="cuda").manual_seed(471)
+    c = MODCONV_WIDTH
+    w = torch.randn(c, c, 3, 3, generator=g, device="cuda")
+    out = {}
+    for size in MODCONV_SIZES:
+        x = torch.randn(MODCONV_BATCH, c, size, size, generator=g,
+                        device="cuda")
+        styles = torch.rand(MODCONV_BATCH, c, generator=g,
+                            device="cuda") * 1.5 + 0.25
+        with torch.no_grad():
+            want = modulated_conv2d_grouped(x, w, styles, padding=1)
+            got = modulated_conv2d(x, w, styles, padding=1)
+            got16 = modulated_conv2d(x.bfloat16(), w, styles, padding=1)
+        scale = want.abs().max()
+        err = ((got - want).abs().max() / scale).item()
+        err16 = ((got16.float() - want).abs().max() / scale).item()
+        if not err <= MODCONV_TOL:
+            fail(f"phase 47: modulated_conv2d at {size}² is {err:.3e} of "
+                 f"scale from the grouped oracle (tolerance {MODCONV_TOL})")
+        out[size] = {"f32_rel_err": err, "bf16_rel_err": err16}
+        del x, want, got, got16
+    x = torch.randn(MODCONV_BATCH, c, MODCONV_SIZES[-1], MODCONV_SIZES[-1],
+                    generator=g, device="cuda")
+    with torch.no_grad():
+        out["ms_at_largest"] = {
+            "scaled": cuda_time_ms(lambda: modulated_conv2d(
+                x, w, styles, padding=1), reps=5, warmup=1),
+            "grouped": cuda_time_ms(lambda: modulated_conv2d_grouped(
+                x, w, styles, padding=1), reps=5, warmup=1)}
+    return out
+
+
+def export_jittable_check() -> dict:
+    """export_jittable of a plain function that calls a seeded 256² ADA G
+    (its tensors become the program's constants): bit-equal to eager at
+    batch GEN_EXPORT_BATCH, with B1/B2 launched as often as eager's."""
+    g = Generator(z_dim=512, img_resolution=GEN_EXPORT_SIZE)
+    init_weights(g, torch.Generator().manual_seed(472))
+    g = g.cuda().eval()
+
+    def synthesize(z):
+        return g(z, noise_mode="const").permute(0, 2, 3, 1)
+
+    z = torch.randn((GEN_EXPORT_BATCH, 512),
+                    generator=torch.Generator().manual_seed(473)).cuda()
+    t0 = time.perf_counter()
+    run = export_utils.export_jittable(synthesize, (z,)).module()
+    export_s = time.perf_counter() - t0
+    with torch.no_grad():
+        reset_launches()
+        want = synthesize(z)
+        torch.cuda.synchronize()
+        eager = read_launches()
+        reset_launches()
+        got = run(z)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    if launches != eager or not launches["bias_act"] \
+            or not launches["smooth_upsample"]:
+        fail(f"phase 47: export_jittable launches {launches}, eager {eager}")
+    if not torch.equal(got, want):
+        fail(f"phase 47: export_jittable's program differs from eager by "
+             f"{(got - want).abs().max().item():.3e}")
+    return {"export_s": export_s, "launches": launches,
+            "launches_eager": eager, "bit_equal": True}
+
+
+def phase_last_slice() -> dict:
+    """Phase 47: device_augment (uint8 and bf16), modulated_conv2d against
+    its grouped oracle, export_jittable of the generator, and test_rfw
+    on phase 32's run directory, which must give phase 32's result on its
+    newest checkpoint file."""
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {"device_augment": {d: augment_check(t) for d, t in
+                              (("uint8", torch.uint8),
+                               ("bf16", torch.bfloat16))},
+           "modconv": modconv_check()}
+    check_no_launch("phase 47: device_augment and modconv")
+    out["export_jittable"] = export_jittable_check()
+    reset_launches()
+    rfw = test_rfw.main(["--checkpoint", HANDOFF["run"], "--data_root",
+                         HANDOFF["data_root"], "--benchmarks", "rfw_African",
+                         "--device", "cuda"])
+    check_no_launch("phase 47: test_rfw")
+    if rfw != HANDOFF["rfw"]:
+        fail(f"phase 47: test_rfw on phase 32's run directory gave {rfw}, "
+             f"on its newest checkpoint {HANDOFF['rfw']}")
+    out["test_rfw_run_dir"] = rfw
+    HANDOFF.pop("tmp").cleanup()
+    out["seconds"] = time.perf_counter() - t0
+    for d, r in out["device_augment"].items():
+        log(f"phase 47: device_augment {d} batch {AUG_BATCH}, {AUG_SIZE}² -> "
+            f"{AUG_CROP}: {r['images']} images each a window of its input, "
+            f"all {r['offsets_seen']} offsets a side seen, flip share "
+            f"{r['flip_share']:.4f}; {r['ms']:.3f} ms a call")
+    mc = out["modconv"]
+    log(f"phase 47: modulated_conv2d vs the grouped oracle, {MODCONV_WIDTH} "
+        f"-> {MODCONV_WIDTH}, batch {MODCONV_BATCH}, of scale: "
+        + ", ".join(f"{s}² f32 {mc[s]['f32_rel_err']:.2e} bf16 "
+                    f"{mc[s]['bf16_rel_err']:.2e}" for s in MODCONV_SIZES)
+        + f"; at {MODCONV_SIZES[-1]}² {mc['ms_at_largest']['scaled']:.2f} ms "
+        f"scaled, {mc['ms_at_largest']['grouped']:.2f} ms grouped (f32)")
+    ej = out["export_jittable"]
+    log(f"phase 47: export_jittable of a function calling the "
+        f"{GEN_EXPORT_SIZE}² G in {ej['export_s']:.2f} s, bit-equal to "
+        f"eager, launches {ej['launches']}; test_rfw on phase 32's run "
+        f"directory {rfw}, as on its checkpoint file; phase 47 in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def zoo_launches(zoo: dict) -> dict:
     """B1/B1b/B2/B2b launches summed over phases 28-32's recorded counts."""
     found = []
@@ -4986,6 +5305,7 @@ def main():
     par_launches = parallel_launches(parallel)
     spatial_tune = phase_spatial_tune()
     sp_launches = spatial_launches(spatial_tune)
+    last = phase_last_slice()
     smi = nvidia_smi_line()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -5034,6 +5354,9 @@ def main():
             # equal to the one process's; phase 46: checked to be 0
             "launches_spatial": sp_launches[name],
             "launches_tune": spatial_tune["tune"]["launches"][name],
+            # phase 47: export_jittable's generator program, equal to
+            # eager's; device_augment, modconv and test_rfw checked to be 0
+            "launches_last_slice": last["export_jittable"]["launches"][name],
             "bf16": {"max_abs_err": errs[(name, "bf16")], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"],
                      "bound_ms": max(rb["bytes_ms"], rb["ops_ms"])}})
@@ -5052,6 +5375,7 @@ def main():
     print(json.dumps({"serving": serving}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"spatial_tune": spatial_tune}))
+    print(json.dumps({"last_slice": last}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-from .dataset import DataLoader, FacesDataset
+from .dataset import DataLoader, FacesDataset, device_augment
 from .images_dataset import (GTResDataset, ImagesDataset, InferenceDataset,
                              list_images)
 from .native_loader import NativeDataLoader, make_loader
@@ -10,5 +10,6 @@ from .randaugment import RandAugment
 __all__ = ["DataLoader", "FacesDataset", "GTResDataset", "ImagesDataset",
            "InferenceDataset", "NativeDataLoader", "make_loader",
            "PackedLoader", "PackedTrainDataset", "RandAugment",
-           "device_prefetch", "is_packed_dir", "list_images", "pack_dataset",
-           "save_packed_meta", "write_packed"]
+           "device_augment", "device_prefetch", "is_packed_dir",
+           "list_images", "pack_dataset", "save_packed_meta",
+           "write_packed"]

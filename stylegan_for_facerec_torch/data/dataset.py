@@ -8,16 +8,21 @@ to ``image_size`` square (both sides, as ``Resize([128, 128])``) in
 from ``seed`` + the epoch counter (numpy ``RandomState``), drops the last
 ragged batch, decodes on host threads, and replaces a corrupt sample by
 resampling another index, so every batch keeps its shape. The random
-crop and flip run in the trainer, on the card.
+crop and flip run on the card, in the trainer's step, through
+``device_augment``.
 """
 
 from __future__ import annotations
 
 import os
 from glob import glob
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
+import torch
+
+from ..ops.image import random_crop, random_hflip
 
 ETHNICITIES = ("African", "Asian", "Caucasian", "Indian")
 EXTENSIONS = (".jpg", ".jpeg", ".png")
@@ -34,9 +39,11 @@ class FacesDataset:
     """Identity-labeled image-folder dataset. ``transform``, when given,
     maps each decoded uint8 RGB array (H, W, 3) to another before the
     resize (``data.randaugment.RandAugment``); ``make_loader`` then takes
-    the Python loader."""
+    the Python loader. ``id2race_file``, lines of ``<identity> <race>``,
+    fills ``id2race``; ``classes`` is ``id_list``."""
 
     def __init__(self, root: str, image_size: int = 128,
+                 id2race_file: Optional[str] = None,
                  extensions: Sequence[str] = EXTENSIONS,
                  transform: Optional[Callable[[np.ndarray],
                                               np.ndarray]] = None):
@@ -49,8 +56,14 @@ class FacesDataset:
         ids = sorted({_strip_ethnicity(fn.split(os.sep)[-2])
                       for fn in self.filenames})
         self.id_list = ids
+        self.classes = ids
         self.id2label = {identity: i for i, identity in enumerate(ids)}
         self.n_identities = len(ids)
+        self.id2race: Optional[Dict[str, str]] = None
+        if id2race_file is not None:
+            with open(id2race_file) as f:
+                lines = f.read().splitlines()
+            self.id2race = {l.split(" ")[0]: l.split(" ")[1] for l in lines}
 
     def __len__(self):
         return len(self.filenames)
@@ -139,3 +152,13 @@ class DataLoader:
                                "data loader producer failed")
         finally:
             pool.shutdown(wait=False)
+
+
+def device_augment(images: torch.Tensor, generator: torch.Generator,
+                   crop: int = 112, hflip_p: float = 0.5) -> torch.Tensor:
+    """The train-time augmentation on the batch's device, as the JAX
+    ``device_augment``: a random ``crop``² window of each NHWC image (the
+    128² host batch) and a horizontal flip with probability ``hflip_p``,
+    the offsets drawn from ``generator`` before the flips."""
+    images = random_crop(images, crop, generator)
+    return random_hflip(images, generator, hflip_p)

@@ -11,8 +11,9 @@ the JAX package's, so either package reads what the other wrote:
 C++ loader where it can) into shards. Shards are memory-mapped; the
 trainer maps uint8 to [-1, 1] on the card.
 ``PackedLoader`` gives the JAX ``PackedLoader``'s batches for the same
-seed and epoch. ``device_prefetch`` copies batch k + 1 from pinned host
-memory on a side CUDA stream while the card runs batch k.
+seed and epoch. ``device_prefetch`` pins and copies batches on a producer
+thread, ``depth`` ahead, on a side CUDA stream while the card runs the
+current one.
 """
 
 from __future__ import annotations
@@ -253,38 +254,48 @@ class PackedLoader:
                            "PackedLoader producer failed")
 
 
-def device_prefetch(iterator, device: str = "cuda"):
-    """(images, labels) numpy batches -> tensors on ``device``. On a GPU
-    each batch is pinned on the host and copied ``non_blocking`` on a side
-    stream one batch ahead; the consuming stream waits on the copy's event
+def device_prefetch(iterator, device: str = "cuda", depth: int = 2):
+    """(images, labels) numpy batches -> tensors on ``device``, shipped on
+    a daemon producer thread at most ``depth`` batches ahead of the
+    consumer, as the JAX ``device_prefetch``. On a GPU the producer pins
+    each batch on the host, copies it ``non_blocking`` on a side stream
+    and records an event; the consumer's stream waits on that event
     before it sees the batch. On the CPU the arrays are wrapped as they
-    are."""
+    are, through the same producer. A failure of the producer reaches the
+    consumer as ``RuntimeError("prefetch producer failed")``, after every
+    batch shipped before it. Abandoning the generator stops the producer.
+
+    JAX's ``sharding`` has no counterpart: under data parallelism each
+    rank prefetches its own ``PackedLoader`` slice onto its own card."""
     dev = resolve_device(device)
+    if depth < 1:
+        raise ValueError(f"depth {depth}: at least one batch ahead")
     if dev.type != "cuda":
-        for batch in iterator:
-            yield tuple(torch.from_numpy(np.ascontiguousarray(a))
-                        for a in batch)
+        def wrapped():
+            for batch in iterator:
+                yield tuple(torch.from_numpy(np.ascontiguousarray(a))
+                            for a in batch)
+
+        yield from _pumped(wrapped, depth, "prefetch producer failed")
         return
     side = torch.cuda.Stream(dev)
 
-    def ship(batch):
-        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                for a in batch]
-        with torch.cuda.stream(side):
-            out = tuple(h.to(dev, non_blocking=True) for h in host)
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
+    def shipped():
+        # the current device and stream are the producer thread's own
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            for batch in iterator:
+                host = [torch.from_numpy(np.ascontiguousarray(a))
+                        .pin_memory() for a in batch]
+                out = tuple(h.to(dev, non_blocking=True) for h in host)
+                done = torch.cuda.Event()
+                done.record(side)
+                yield out, host, done
 
-    it = iter(iterator)
-    pending = next(it, None)
-    pending = None if pending is None else ship(pending)
-    while pending is not None:
-        out, done = pending
-        nxt = next(it, None)
-        pending = None if nxt is None else ship(nxt)
+    for out, host, done in _pumped(shipped, depth,
+                                   "prefetch producer failed"):
         consumer = torch.cuda.current_stream(dev)
         consumer.wait_event(done)
         for t in out:
             t.record_stream(consumer)
+        del host            # the pinned source lives until the wait is queued
         yield out

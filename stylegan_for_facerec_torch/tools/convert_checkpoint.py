@@ -102,6 +102,14 @@ def convert_to_jax(kind: str, src: str, dst: str, output_size: int = 128,
     return len(sd)
 
 
+def convert_lpips(src: str, alexnet: str, dst: str) -> None:
+    """The JAX tool's LPIPS conversion: the richzhang lin weights and a
+    torchvision AlexNet state_dict as the checkpoint directory
+    ``train_stage2 --lpips_weights`` loads (``to_jax --model lpips``)."""
+    convert_to_jax("lpips", src, dst, alexnet=alexnet)
+    print(f"converted LPIPS weights -> {dst}")
+
+
 def convert_to_torch(kind: str, src: str, dst: str,
                      output_size: int = 128) -> int:
     from ..models.psp import PSpFaceRec

@@ -14,8 +14,8 @@ Kinds:
   embedder   face-rec backbone (a name ``train_stage3.build_backbone``
              takes), images (b, H, W, 3) -> embeddings (b, E), not
              L2-normalized; the checkpoint is a JAX package run
-             directory (read without JAX) or a stage-3 checkpoint file of
-             this package
+             directory (read without JAX), or a stage-3 checkpoint file
+             or run directory (its newest step) of this package
   generator  StyleGAN2-ADA synthesis, z -> images (b, H, W, 3) with const
              noise, from a stage-1 run directory of this package or a torch
              ADA checkpoint (``G.*`` keys)
@@ -36,9 +36,9 @@ def _parse(argv):
     ap.add_argument("--kind", choices=["embedder", "generator"],
                     default="embedder")
     ap.add_argument("--checkpoint", required=True,
-                    help="embedder: a JAX package run/checkpoint dir or a "
-                    "stage-3 .pt of this package; generator: a stage-1 run "
-                    "dir of this package or a torch ADA .pt")
+                    help="embedder: a JAX package run/checkpoint dir, or a "
+                    "stage-3 .pt or run dir of this package; generator: a "
+                    "stage-1 run dir of this package or a torch ADA .pt")
     ap.add_argument("--out", required=True, help="artifact output dir")
     ap.add_argument("--device", default="cuda",
                     help="the device the artifact is exported for")
@@ -58,10 +58,11 @@ def load_embedder(model, path: str) -> str:
     """Fill ``model`` from a JAX package checkpoint directory (its
     ``backbone`` subtree when it has one) or a stage-3 file of this
     package; returns the source's name."""
-    from ..utils.checkpoint import load_backbone, read_jax_checkpoint
+    from ..utils.checkpoint import (load_backbone, read_jax_checkpoint,
+                                    resolve_checkpoint_dir)
     from ..utils.convert import load_from_jax
 
-    if os.path.isdir(path):
+    if os.path.isdir(resolve_checkpoint_dir(path)):
         tree = read_jax_checkpoint(path)
         params, state = tree["params"], tree.get("state", {})
         load_from_jax(model, params.get("backbone", params),

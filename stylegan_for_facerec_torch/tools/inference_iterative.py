@@ -11,7 +11,10 @@ iteration's latents in ``exp_dir/latents.npy``. With
 checkpoint's model makes the first inversion from its average image, the
 second's runs the other iterations. Both load as ``PSp``, as in the JAX
 package's CLI, so an e4e checkpoint's style heads give absolute codes
-there, not deltas on w0. Runs on the GPU unless
+there, not deltas on w0. Either path may be a run directory: its newest
+checkpoint loads (``utils.checkpoint.resolve_checkpoint_dir``), and an
+``avg_image.npy`` in it or beside the checkpoint is the average image when
+the checkpoint has none. Runs on the GPU unless
 ``--device cpu``; raises when no GPU is found.
 """
 
@@ -57,11 +60,13 @@ def main(argv=None):
         avg_image = torch.from_numpy(np.load(args.avg_image))
         print(f"[init] avg image from {args.avg_image}")
     elif avg_image is None:
-        p = os.path.join(os.path.dirname(args.checkpoint_path),
-                         "avg_image.npy")
-        if os.path.exists(p):
-            avg_image = torch.from_numpy(np.load(p))
-            print(f"[init] avg image from {p}")
+        for d in (args.checkpoint_path,
+                  os.path.dirname(args.checkpoint_path.rstrip("/"))):
+            p = os.path.join(d, "avg_image.npy")
+            if os.path.exists(p):
+                avg_image = torch.from_numpy(np.load(p))
+                print(f"[init] avg image from {p}")
+                break
     if avg_image is None:
         print("[warn] no avg image in or beside the checkpoint; "
               "conditioning on a ZERO average image — reconstructions "

@@ -8,11 +8,12 @@
 
 The JAX package's ``tools/test_rb_webface.py``: builds the backbone
 (every name ``train_stage3.build_backbone`` takes, at 112 px), loads the
-checkpoint's backbone (a ``train_stage3`` checkpoint of this package),
-embeds each group's positive and negative lists without flip TTA
-(``eval.rb_webface``: resize 128, centre crop 112) and prints each group's
-TPR@FPR. Runs on the card unless ``--device cpu``; raises when no GPU is
-found.
+checkpoint's backbone (a ``train_stage3`` checkpoint of this package, or
+its run directory: the newest step, through
+``utils.checkpoint.resolve_checkpoint_dir``), embeds each group's
+positive and negative lists without flip TTA (``eval.rb_webface``: resize
+128, centre crop 112) and prints each group's TPR@FPR. Runs on the card
+unless ``--device cpu``; raises when no GPU is found.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import types
 def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", required=True,
-                    help="stage-3 checkpoint file of this package")
+                    help="stage-3 checkpoint file of this package, or its "
+                    "run directory (the newest step)")
     ap.add_argument("--data_path", required=True,
                     help="directory the partition lists' names are under")
     ap.add_argument("--partition_path", required=True,

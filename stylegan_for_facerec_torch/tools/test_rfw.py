@@ -7,11 +7,13 @@
 
 The JAX package's ``tools/test_rfw.py``: builds the backbone (every name
 ``train_stage3.build_backbone`` takes, at 112 px; the JAX CLI builds
-``pSp`` and the IR backbones), loads the checkpoint's backbone
-(a ``train_stage3`` checkpoint of this package), and prints the 10-fold
-accuracy and best threshold of each ``data_root/<benchmark>.npz`` pair
-set; with ``--roc_dir`` each benchmark's ROC curve is also written there
-as ``<benchmark>_ROC_Curve/0000.png`` (this needs matplotlib, which
+``pSp`` and the IR backbones), loads the checkpoint's backbone (a
+``train_stage3`` checkpoint of this package, or its run directory: the
+newest step, through ``utils.checkpoint.resolve_checkpoint_dir``), and
+prints the 10-fold accuracy and best threshold of each
+``data_root/<benchmark>.npz`` pair set; with ``--roc_dir`` each
+benchmark's ROC curve is also written there as
+``<benchmark>_ROC_Curve/0000.jpg`` (this needs matplotlib, which
 nothing else of the package does). ``--int8`` also evaluates the
 calibrated int8 path (``utils/quantize.py``): it calibrates on the first
 benchmark's first 32 images, strips a copy of the backbone and prints
@@ -30,7 +32,8 @@ import types
 def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", required=True,
-                    help="stage-3 checkpoint file of this package")
+                    help="stage-3 checkpoint file of this package, or its "
+                    "run directory (the newest step)")
     ap.add_argument("--data_root", required=True,
                     help="directory of packed <benchmark>.npz pair sets")
     ap.add_argument("--benchmarks", nargs="+",

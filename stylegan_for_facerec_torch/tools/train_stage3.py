@@ -42,7 +42,7 @@ through ``make_loader`` (the C++ loader where it can take the tree, with
 packed shards refuse); the crop to the input size and the flip run in the
 train step. After each epoch every ``eval_benchmarks`` set found
 as ``data_root/<name>.npz`` is verified, its accuracy, threshold and ROC
-curve image (``logs/<name>_ROC_Curve/<step>.png``; skipped, said once,
+curve image (``logs/<name>_ROC_Curve/<step>.jpg``; skipped, said once,
 where matplotlib is not installed) logged, and a checkpoint is written
 under ``model_root/name``; SIGTERM/SIGINT save mid-epoch, and ``--resume``
 continues from the newest checkpoint (a preempted epoch replays its
@@ -172,14 +172,17 @@ def load_encoder_handoff(backbone, path: str) -> Optional[torch.Tensor]:
     without JAX; its ``avg_image.npy``); a file is a ``torch.save`` state
     dict, bare or under ``state_dict``, with the reference's
     ``encoder.*`` names: a stage-2 checkpoint of this package (with its
-    ``avg_image``) or a reference torch ``.pt``."""
-    from ..utils.checkpoint import load_stage2_encoder, read_jax_checkpoint
+    ``avg_image``; its run directory gives the newest) or a reference
+    torch ``.pt``."""
+    from ..utils.checkpoint import (load_stage2_encoder, read_jax_checkpoint,
+                                    resolve_checkpoint_dir)
     from ..utils.convert import load_stage2_encoder_from_jax
-    if os.path.isdir(path):
+    resolved = resolve_checkpoint_dir(path)
+    if os.path.isdir(resolved):
         load_stage2_encoder_from_jax(backbone, read_jax_checkpoint(path))
         avg = os.path.join(path, "avg_image.npy")
         return _avg_image(avg) if os.path.exists(avg) else None
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = torch.load(resolved, map_location="cpu", weights_only=True)
     load_stage2_encoder(backbone, ckpt.get("state_dict", ckpt))
     avg = ckpt.get("avg_image")
     return avg if torch.is_tensor(avg) else None

@@ -71,10 +71,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..data.dataset import device_augment
 from ..losses.focal import focal_of_mean
 from ..nn.initializers import init_weights, xavier_uniform_
 from ..nn.layers import Dropout, _GhostBatchNorm
-from ..ops.image import random_crop, random_hflip
 from ..parallel.mesh import LocalAxis
 from ..parallel.sharded_head import local_margin_ce, topk_correct
 from ..utils.device import resolve_device
@@ -300,9 +300,8 @@ class Stage3Trainer:
             p.requires_grad_(True if grad_mask is None else grad_mask[k])
         self.backbone.train()
         if self.cfg.augment_crop is not None:
-            images = random_crop(images, self.cfg.augment_crop,
-                                 self.generator)
-            images = random_hflip(images, self.generator)
+            images = device_augment(images, self.generator,
+                                    self.cfg.augment_crop)
         self.optimizer.zero_grad(set_to_none=True)
         loss, top1, top5 = self._loss(images, labels)
         loss.backward()

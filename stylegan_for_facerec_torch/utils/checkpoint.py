@@ -24,6 +24,10 @@
     a ``PSpFaceRec`` (a file of this package, or a reference torch
     ``.pt``: the same module names); ``load_backbone``: a stage-3 file's
     backbone.
+  * ``resolve_checkpoint_dir``: a run directory to its newest checkpoint,
+    in this package's layout or the JAX package's; ``load_checkpoint``,
+    ``load_backbone``, ``load_metadata`` and ``read_jax_checkpoint`` take
+    a run directory through it.
   * ``read_jax_checkpoint``: a checkpoint directory of the JAX package's
     npz format, read without JAX: its ``leaves.npz`` placed by the
     ``manifest.json`` tree description, as nested dicts of numpy arrays
@@ -53,6 +57,30 @@ from torch import nn
 from ..models.psp import PSp, PSpFaceRec
 
 
+def resolve_checkpoint_dir(path: str) -> str:
+    """A checkpoint, or a training run's directory resolved to its newest
+    checkpoint, as the JAX package's ``resolve_checkpoint_dir``: a file or
+    a directory with ``manifest.json`` comes back as it is; a run
+    directory goes to its newest ``step_*`` (``step_{step:09d}.pt`` of
+    ``CheckpointManager``, or the JAX package's ``step_*/``), else to its
+    ``best`` (``best.pt`` or ``best/``); anything else comes back
+    unchanged. So the eval CLIs take a run directory for a checkpoint."""
+    if os.path.isfile(path) or os.path.exists(
+            os.path.join(path, "manifest.json")):
+        return path
+    if os.path.isdir(path):
+        # a CheckpointManager write in flight is a ``.tmp`` file
+        steps = sorted(d for d in os.listdir(path)
+                       if d.startswith("step_") and not d.endswith(".tmp"))
+        if steps:
+            return os.path.join(path, steps[-1])
+        if os.path.exists(os.path.join(path, "best", "manifest.json")):
+            return os.path.join(path, "best")
+        if os.path.isfile(os.path.join(path, "best.pt")):
+            return os.path.join(path, "best.pt")
+    return path
+
+
 def save_checkpoint(path: str, model: PSp,
                     avg_image: Optional[torch.Tensor] = None) -> None:
     """Write a ``PSp``'s weights, ``latent_avg`` and ``avg_image``: the
@@ -69,9 +97,11 @@ def save_checkpoint(path: str, model: PSp,
 def load_checkpoint(path: str, model: PSp) -> Optional[torch.Tensor]:
     """Load a ``save_checkpoint`` file, or a stage-2 ``CheckpointManager``
     file, into a ``PSp`` strictly (weights and ``latent_avg``); returns the
-    stored ``avg_image`` (on the CPU) or None. A stage-3 file loads with
+    stored ``avg_image`` (on the CPU) or None. ``path`` may be a run
+    directory (``resolve_checkpoint_dir``). A stage-3 file loads with
     ``load_backbone`` or ``Stage3Trainer.load_state_dict``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = torch.load(resolve_checkpoint_dir(path), map_location="cpu",
+                      weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     with torch.no_grad():
         model.latent_avg.copy_(ckpt["latent_avg"])
@@ -127,8 +157,10 @@ def load_stage2_encoder(backbone: PSpFaceRec,
 
 
 def load_backbone(path: str, backbone: nn.Module) -> None:
-    """Load a stage-3 checkpoint's backbone strictly into ``backbone``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    """Load a stage-3 checkpoint's backbone strictly into ``backbone``;
+    ``path`` may be a run directory (``resolve_checkpoint_dir``)."""
+    ckpt = torch.load(resolve_checkpoint_dir(path), map_location="cpu",
+                      weights_only=True)
     backbone.load_state_dict(ckpt["backbone"], strict=True)
 
 
@@ -153,9 +185,9 @@ def load_inception(path: str, model: nn.Module) -> None:
 
 def load_metadata(path: str) -> Dict:
     """The ``metadata`` dict of a ``CheckpointManager`` file (memory-mapped:
-    the tensors are not read)."""
-    return torch.load(path, map_location="cpu", weights_only=True,
-                      mmap=True).get("metadata", {})
+    the tensors are not read); ``path`` may be a run directory."""
+    return torch.load(resolve_checkpoint_dir(path), map_location="cpu",
+                      weights_only=True, mmap=True).get("metadata", {})
 
 
 class CheckpointManager:
@@ -302,20 +334,6 @@ def _treedef_leaf_paths(desc: str) -> List[Tuple]:
     return [p[1:] for p in paths]
 
 
-def _checkpoint_dir(path: str) -> str:
-    """A checkpoint directory, or a run directory's newest ``step_*`` (or
-    ``best``) checkpoint, as the JAX package resolves it."""
-    if os.path.exists(os.path.join(path, "manifest.json")):
-        return path
-    steps = sorted(d for d in os.listdir(path) if d.startswith("step_"))
-    if steps:
-        return os.path.join(path, steps[-1])
-    if os.path.exists(os.path.join(path, "best", "manifest.json")):
-        return os.path.join(path, "best")
-    raise SystemExit(f"{path}: no manifest.json, step_* or best/ checkpoint "
-                     f"of the JAX package")
-
-
 def read_jax_checkpoint(path: str) -> Dict:
     """A JAX npz checkpoint directory (or run directory) as nested dicts
     of numpy arrays, keyed as the saved tree's dicts; the entries of a
@@ -323,7 +341,10 @@ def read_jax_checkpoint(path: str) -> Dict:
     Reads ``manifest.json``'s tree description and ``leaves.npz``; the
     pickled ``treedef.pkl`` needs JAX and is not read. A checkpoint of
     the ``orbax`` backend is refused."""
-    ckpt = _checkpoint_dir(path)
+    ckpt = resolve_checkpoint_dir(path)
+    if not os.path.exists(os.path.join(ckpt, "manifest.json")):
+        raise SystemExit(f"{path}: no manifest.json, step_* or best/ "
+                         f"checkpoint of the JAX package")
     with open(os.path.join(ckpt, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest.get("backend", "npz") != "npz":

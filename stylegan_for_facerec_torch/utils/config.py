@@ -1,9 +1,12 @@
-"""Stage-1 and stage-3 configurations, as
-``stylegan_for_facerec_tpu/utils/config.py``'s ``Stage1Config`` and
-``Stage3Options``: loaded from JSON or YAML (``load_config``, e.g.
+"""The stages' configurations, as
+``stylegan_for_facerec_tpu/utils/config.py``'s ``Stage1Config``,
+``Stage2Options``, ``Stage2TestOptions`` and ``Stage3Options``: loaded
+from JSON or YAML (``load_config``, e.g.
 ``configs/stage1_stylegan2_ada.json``), and stage 3's converted from a
 reference python config's ``configurations`` dict
-(``from_reference_stage3``).
+(``from_reference_stage3``). The stage-2 records hold the JAX package's
+fields and defaults; the stage-2 CLIs keep their own argparse defaults,
+as the JAX CLIs do.
 """
 
 from __future__ import annotations
@@ -39,6 +42,50 @@ class Stage1Config:
     num_epochs: int = 500
     batches_per_epoch: int = 4000
     compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass
+class Stage2Options:
+    """ReStyle pSp training (the reference's ``options/train_options.py``
+    and its README's stage-2 recipe)."""
+
+    dataset_type: str = "afr_asian_faces"
+    encoder_type: str = "BackboneEncoder"
+    output_size: int = 128
+    input_nc: int = 6
+    n_iters_per_batch: int = 1
+    batch_size: int = 8
+    workers: int = 32
+    learning_rate: float = 1e-4
+    optim_name: str = "ranger"
+    train_decoder: bool = False
+    lpips_lambda: float = 0.8
+    l2_lambda: float = 1.0
+    id_lambda: float = 0.0
+    w_norm_lambda: float = 0.0
+    moco_lambda: float = 0.0
+    max_steps: int = 2_500_000
+    val_interval: int = 1000
+    save_interval: int = 1000
+    image_interval: int = 100
+    board_interval: int = 50
+    stylegan_weights: Optional[str] = None
+    checkpoint_path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class Stage2TestOptions:
+    """Inference options (the reference's ``options/test_options.py``),
+    with the encoder-bootstrapping model pair."""
+
+    exp_dir: str = "./inference"
+    checkpoint_path: Optional[str] = None
+    data_path: Optional[str] = None
+    resize_outputs: bool = True
+    test_batch_size: int = 8
+    n_iters_per_batch: int = 5
+    model_1_checkpoint_path: Optional[str] = None
+    model_2_checkpoint_path: Optional[str] = None
 
 
 @dataclasses.dataclass

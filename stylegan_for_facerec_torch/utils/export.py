@@ -10,6 +10,9 @@ model code.
   (b, H, W, 3) with the stored (const) noise.
 * ``export_embedder_sharded`` and ``run_sharded``: the embedder over a
   mesh's data axis, the global batch ``data * b``.
+* ``export_jittable``: any module or plain function on example inputs;
+  the three exports above go through it. (JAX's ``platforms`` has no
+  counterpart: a program runs on the device it was traced on.)
 
 Layouts at the artifact's boundary are the JAX package's (NHWC). The
 generator reaches kernels B1 and B2 as the ``torch.library`` custom ops
@@ -26,7 +29,7 @@ from __future__ import annotations
 import copy
 import json
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -57,17 +60,45 @@ class _Generate(nn.Module):
         return self.model(z, noise_mode=self.noise_mode).permute(0, 2, 3, 1)
 
 
+class _Function(nn.Module):
+    """A plain function as a module: the tensors it reaches (a model it
+    closes over) become the program's constants."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def export_jittable(fn, example_args: Sequence[torch.Tensor],
+                    dynamic_shapes: Optional[Sequence] = None):
+    """``torch.export`` of ``fn(*example_args)`` without autograd, as the
+    JAX ``export_jittable`` (``jax.export`` of a jitted function). ``fn``
+    is a module or a plain function, which is wrapped in one.
+    ``dynamic_shapes`` gives one entry per argument (``{dim:
+    torch.export.Dim}`` or None), as ``torch.export.export`` takes them.
+    The kernels' ``sgfr::`` custom ops stay nodes of the graph."""
+    args = tuple(example_args)
+    if not isinstance(fn, nn.Module):
+        fn = _Function(fn)
+        if dynamic_shapes is not None:     # the wrapper takes ``*args``
+            dynamic_shapes = (tuple(dynamic_shapes),)
+    with torch.no_grad():
+        return torch.export.export(fn, args, dynamic_shapes=dynamic_shapes)
+
+
 def _export(module: nn.Module, tail, dtype, batch: Optional[int], dev):
-    """``torch.export`` of ``module`` on one input (b, *tail): b symbolic
-    (traced at 2, since the exporter specialises sizes 0 and 1) unless
-    ``batch`` pins it."""
+    """``export_jittable`` of ``module`` on one input (b, *tail): b
+    symbolic (traced at 2, since the exporter specialises sizes 0 and 1)
+    unless ``batch`` pins it."""
     x = torch.zeros((2 if batch is None else int(batch), *tail),
                     dtype=dtype, device=dev)
     dynamic = None
     if batch is None:
         dynamic = ({0: torch.export.Dim("batch", min=1, max=_MAX_BATCH)},)
-    with torch.no_grad():
-        return torch.export.export(module, (x,), dynamic_shapes=dynamic)
+    return export_jittable(module, (x,), dynamic)
 
 
 def export_embedder(model: nn.Module, *, image_size: int = 112,
@@ -124,7 +155,9 @@ def save_exported(exported, path: str, metadata: Optional[dict] = None,
     inputs = [n for n in graph.nodes
               if n.op == "placeholder" and n.name in user_inputs]
     output = next(n for n in graph.nodes if n.op == "output")
-    devices = {t.device.type for t in exported.state_dict.values()}
+    devices = {t.device.type for t in (*exported.state_dict.values(),
+                                       *exported.constants.values())
+               if torch.is_tensor(t)}
     meta = {"fn_name": fn_name,
             "platforms": sorted(devices) or ["cpu"],
             "in_avals": _avals(inputs),

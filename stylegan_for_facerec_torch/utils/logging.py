@@ -1,6 +1,6 @@
 """Training logs: ``AverageMeter``, ``aggregate_loss_dicts``,
 ``MetricLogger`` (scalars as JSON lines, per-benchmark verification
-results with their ROC curves, image grids as PNG), ``render_roc_curve``,
+results with their ROC curves, images as JPEG), ``render_roc_curve``,
 ``profile_trace`` (a ``torch.profiler`` Chrome trace) and ``StepTimer``,
 as ``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb
 backend."""
@@ -45,8 +45,8 @@ def aggregate_loss_dicts(agg_list: List[Dict]) -> Dict[str, float]:
 
 class MetricLogger:
     """Console lines plus ``log_dir/metrics.jsonl``; ``log_image`` writes
-    ``log_dir/<name>/<step>.png``. Close it (or use it as a context
-    manager) to close the file."""
+    ``log_dir/<name>/[<subscript>_]<step>.jpg``. Close it (or use it as a
+    context manager) to close the file."""
 
     def __init__(self, log_dir: Optional[str] = None):
         self.log_dir = log_dir
@@ -89,15 +89,22 @@ class MetricLogger:
             self.log_image(f"{db_name}_ROC_Curve",
                            render_roc_curve(fpr, tpr), step)
 
-    def log_image(self, name: str, image, step: int) -> Optional[str]:
-        """``image``: uint8 HWC array. Returns the written path (None
-        without a log_dir)."""
+    def log_image(self, name: str, image, step: int,
+                  subscript: Optional[str] = None) -> Optional[str]:
+        """Save ``image`` (a uint8 HWC array or a PIL image) as
+        ``log_dir/<name>/<subscript>_<step:04d>.jpg``, or
+        ``<step:04d>.jpg`` without a subscript: the JAX package's layout.
+        Returns the written path (None without a log_dir)."""
         if not self.log_dir:
             return None
         from PIL import Image
-        path = os.path.join(self.log_dir, name, f"{step:04d}.png")
+        if not isinstance(image, Image.Image):
+            image = Image.fromarray(np.asarray(image))
+        fname = (f"{subscript}_{step:04d}.jpg" if subscript
+                 else f"{step:04d}.jpg")
+        path = os.path.join(self.log_dir, name, fname)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        Image.fromarray(np.asarray(image)).save(path)
+        image.save(path)
         return path
 
     def close(self):

@@ -64,8 +64,8 @@ def _train(root, name):
 def test_epoch_roc_image_and_test_rfw_int8(tmp_path, capsys):
     _tree(tmp_path)
     run = _train(tmp_path, "mfn")
-    png = run / "logs" / "rfw_African_ROC_Curve" / "0001.png"
-    img = np.asarray(Image.open(png))
+    roc = run / "logs" / "rfw_African_ROC_Curve" / "0001.jpg"
+    img = np.asarray(Image.open(roc))
     assert img.ndim == 3 and img.std() > 0
     capsys.readouterr()
 

@@ -311,8 +311,8 @@ def test_cli_trains_a_zoo_backbone_and_test_rfw_writes_roc(tmp_path):
                          "20", "--no_tta", "--device", "cpu", "--roc_dir",
                          str(tmp_path / "roc")])
     assert 0.0 <= res["rfw_African"][0] <= 1.0
-    png = tmp_path / "roc" / "rfw_African_ROC_Curve" / "0000.png"
-    img = np.asarray(Image.open(png))
+    roc = tmp_path / "roc" / "rfw_African_ROC_Curve" / "0000.jpg"
+    img = np.asarray(Image.open(roc))
     assert img.ndim == 3 and img.shape[2] == 3 and img.std() > 0
     lines = (tmp_path / "roc" / "metrics.jsonl").read_text().splitlines()
     assert "rfw_African_Accuracy" in json.loads(lines[0])

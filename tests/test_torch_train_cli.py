@@ -80,7 +80,7 @@ def test_train_cli_two_steps_checkpoint_and_resume(tmp_path, run_dir):
             (exp / "logs" / "metrics.jsonl").read_text().splitlines()]
     assert logs[0]["step"] == 0 and np.isfinite(logs[0]["train/loss"])
     assert "train/loss_lpips" in logs[0]
-    assert (exp / "logs" / "images" / "train" / "faces" / "0001.png").exists()
+    assert (exp / "logs" / "images" / "train" / "faces" / "0001.jpg").exists()
 
     del saved["optimizer"]      # 1.3 GB of Ranger state, no longer needed
     train_stage2.main(_args(data, exp, "--max_steps", "3", "--resume"))
@@ -129,7 +129,7 @@ def test_metric_logger_and_meters(tmp_path):
         path = logger.log_image("grid", np.zeros((4, 6, 3), np.uint8), 3)
     line = json.loads((tmp_path / "metrics.jsonl").read_text())
     assert line["train/loss"] == 0.5 and line["step"] == 3
-    assert path.endswith(os.path.join("grid", "0003.png"))
+    assert path.endswith(os.path.join("grid", "0003.jpg"))
     assert np.asarray(Image.open(path)).shape == (4, 6, 3)
     m = AverageMeter()
     m.update(2.0, n=3)
