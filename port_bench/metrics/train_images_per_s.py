@@ -1,0 +1,8 @@
+"""Images trained in the window, on every card, over the window's time
+(host clock, the window closed by a device synchronisation)."""
+
+UNIT = "images/s"
+
+
+def read(r):
+    return r.items_per_call * r.calls / r.seconds
