@@ -1,0 +1,12 @@
+"""Device ms of the span ``sgfr.psp.decoder`` (``models/psp.py::PSp``:
+the StyleGAN2-ADA generator), over its 5 iterations, a call
+(``sgfr.invert.call``) in the traced window; CUDA events the span
+records on the stream."""
+
+from port_bench.harness.spans import per_call
+
+UNIT = "ms"
+
+
+def read(r):
+    return per_call(r, "sgfr.psp.decoder", "device_ms", "sgfr.invert.call")

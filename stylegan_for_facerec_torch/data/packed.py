@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.tracing import count, span
 
 META_NAME = "packed_meta.json"
 
@@ -264,6 +265,9 @@ def device_prefetch(iterator, device: str = "cuda", depth: int = 2):
     are, through the same producer. A failure of the producer reaches the
     consumer as ``RuntimeError("prefetch producer failed")``, after every
     batch shipped before it. Abandoning the generator stops the producer.
+    On the consumer's thread the span ``sgfr.data.wait``
+    (``utils/tracing.py``) covers each wait for the next shipped batch,
+    and the counter ``sgfr.data.batches`` counts the batches handed over.
 
     JAX's ``sharding`` has no counterpart: under data parallelism each
     rank prefetches its own ``PackedLoader`` slice onto its own card."""
@@ -276,7 +280,8 @@ def device_prefetch(iterator, device: str = "cuda", depth: int = 2):
                 yield tuple(torch.from_numpy(np.ascontiguousarray(a))
                             for a in batch)
 
-        yield from _pumped(wrapped, depth, "prefetch producer failed")
+        yield from _handed_over(_pumped(wrapped, depth,
+                                        "prefetch producer failed"))
         return
     side = torch.cuda.Stream(dev)
 
@@ -291,11 +296,32 @@ def device_prefetch(iterator, device: str = "cuda", depth: int = 2):
                 done.record(side)
                 yield out, host, done
 
-    for out, host, done in _pumped(shipped, depth,
-                                   "prefetch producer failed"):
+    def waited(item):
+        # ``host``, the pinned source, lives until the wait is queued
+        out, host, done = item
         consumer = torch.cuda.current_stream(dev)
         consumer.wait_event(done)
         for t in out:
             t.record_stream(consumer)
-        del host            # the pinned source lives until the wait is queued
-        yield out
+        return out
+
+    yield from _handed_over(_pumped(shipped, depth,
+                                    "prefetch producer failed"), waited)
+
+
+def _handed_over(items, finish=None):
+    """The items of the generator ``items`` (through ``finish``), each wait
+    for the next (the queue's get and ``finish``) inside the span
+    ``sgfr.data.wait``; closing this generator closes ``items``."""
+    try:
+        while True:
+            with span("sgfr.data.wait"):
+                item = next(items, None)
+                if item is None:
+                    return
+                if finish is not None:
+                    item = finish(item)
+            count("sgfr.data.batches")
+            yield item
+    finally:
+        items.close()

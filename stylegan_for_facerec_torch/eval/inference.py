@@ -17,6 +17,7 @@ from ..models.psp import PSp
 from ..ops.image import hflip, resize_bilinear
 from ..utils.device import resolve_device
 from ..utils.quantize import hooked
+from ..utils.tracing import span
 
 
 def run_on_batch(model: PSp, inputs: torch.Tensor, avg_image: torch.Tensor,
@@ -43,25 +44,32 @@ def encoder_bootstrap(model1: PSp, model2: PSp, inputs: torch.Tensor,
     """Encoder bootstrapping: ``model1`` makes the first inversion from its
     average image ``avg_image1`` (its ``latent_avg`` as the start), and
     ``model2`` runs the other ``n_iters - 1`` iterations from that output
-    and latent. Shapes as ``run_on_batch``'s; both models in eval mode."""
+    and latent. Shapes as ``run_on_batch``'s; both models in eval mode.
+    Spans (``utils/tracing.py``): ``sgfr.invert.call`` around each
+    iteration's ``sgfr.invert.iteration``, which holds the model's spans
+    and ``sgfr.invert.resize`` (the next conditioning)."""
     if model1.training or model2.training:
         raise ValueError("iterative inversion needs its models in eval "
                          "mode (BatchNorm running statistics)")
-    x = inputs.permute(0, 3, 1, 2)
-    h, w = x.shape[-2:]
-    cond = avg_image1.permute(2, 0, 1)[None].to(x.dtype).expand_as(x)
-    latent = None
-    outs, lats = [], []
-    for it in range(n_iters):
-        model = model1 if it == 0 else model2
-        y_hat, latent = model(torch.cat([x, cond], dim=1), latent,
-                              resize=resize_outputs, randomize_noise=False,
-                              return_latents=True)
-        outs.append(y_hat.permute(0, 2, 3, 1))
-        lats.append(latent)
-        # resize back to the input size for the next conditioning
-        cond = resize_bilinear(y_hat, h, w)
-    return torch.stack(outs), torch.stack(lats)
+    with span("sgfr.invert.call"):
+        x = inputs.permute(0, 3, 1, 2)
+        h, w = x.shape[-2:]
+        cond = avg_image1.permute(2, 0, 1)[None].to(x.dtype).expand_as(x)
+        latent = None
+        outs, lats = [], []
+        for it in range(n_iters):
+            model = model1 if it == 0 else model2
+            with span("sgfr.invert.iteration"):
+                y_hat, latent = model(torch.cat([x, cond], dim=1), latent,
+                                      resize=resize_outputs,
+                                      randomize_noise=False,
+                                      return_latents=True)
+                outs.append(y_hat.permute(0, 2, 3, 1))
+                lats.append(latent)
+                # resize back to the input size for the next conditioning
+                with span("sgfr.invert.resize"):
+                    cond = resize_bilinear(y_hat, h, w)
+        return torch.stack(outs), torch.stack(lats)
 
 
 def extract_features_from_folder(backbone: torch.nn.Module, root: str,

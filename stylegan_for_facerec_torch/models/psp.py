@@ -18,6 +18,7 @@ from ..nn.initializers import (init_conv_torch_default_, init_conv_xavier_,
 from ..nn.layers import BatchNorm2d
 from ..ops.image import resize_bilinear, resize_bilinear_align_corners
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .irse import (BottleneckIR, end_spatial, facerec_output_layer,
                    get_blocks, init_stem_and_head_)
 from .resnet import BasicBlock
@@ -330,17 +331,22 @@ class PSp(nn.Module):
                 return_latents: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x: (N, input_nc, H, W). Random noise (``randomize_noise``) draws
-        from ``generator``."""
-        codes = self.encoder(x)
-        if latent is not None:
-            codes = codes + latent
-        else:
-            codes = codes + self.latent_avg[None].to(codes.dtype)
-        images = self.decoder(
-            codes, noise_mode="random" if randomize_noise else "const",
-            input_is_latent=True, generator=generator)
+        from ``generator``. Spans (``utils/tracing.py``):
+        ``sgfr.psp.encoder`` (with the residual step onto the latent),
+        ``sgfr.psp.decoder``, ``sgfr.psp.face_pool``."""
+        with span("sgfr.psp.encoder"):
+            codes = self.encoder(x)
+            if latent is not None:
+                codes = codes + latent
+            else:
+                codes = codes + self.latent_avg[None].to(codes.dtype)
+        with span("sgfr.psp.decoder"):
+            images = self.decoder(
+                codes, noise_mode="random" if randomize_noise else "const",
+                input_is_latent=True, generator=generator)
         if resize and images.shape[-1] != 256:
-            images = self.face_pool(images)
+            with span("sgfr.psp.face_pool"):
+                images = self.face_pool(images)
         if return_latents:
             return images, codes
         return images

@@ -33,6 +33,10 @@ on the concatenated batch. Below that reduction a rank's gradients are
 its share: a global statistic that feeds the rank's rows (BatchNorm's
 moments, the minibatch stddev's gathered batch, path length's mean) goes
 through ``Axis.sum``, whose backward sums the shares.
+
+Every all-reduce and broadcast issued here adds to the counters
+``sgfr.collective.calls`` and ``sgfr.collective.bytes`` (the flat
+tensor's ``numel x element_size``) of ``utils/tracing.py``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from torch.autograd import Function
 
 from ..utils.device import resolve_device
 from ..utils.draws import SliceGenerator
+from ..utils.tracing import count
 
 _TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -101,11 +106,17 @@ def initialize_distributed_from_env(backend: Optional[str] = None) -> bool:
     return False
 
 
+def _counted(t: torch.Tensor) -> torch.Tensor:
+    count("sgfr.collective.calls")
+    count("sgfr.collective.bytes", t.numel() * t.element_size())
+    return t
+
+
 # -- autograd collectives ---------------------------------------------------
 
 def _reduced(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=op, group=group)
+    dist.all_reduce(_counted(y), op=op, group=group)
     return y
 
 
@@ -238,7 +249,7 @@ class Axis:
         grads = [p.grad for p in params if p.grad is not None]
         for gs in _flat_groups(grads):
             flat = torch._utils._flatten_dense_tensors(gs)
-            dist.all_reduce(flat, group=self.group)
+            dist.all_reduce(_counted(flat), group=self.group)
             for g, f in zip(gs, torch._utils._unflatten_dense_tensors(
                     flat, gs)):
                 g.copy_(f)
@@ -250,7 +261,8 @@ class Axis:
         one flattened broadcast per dtype."""
         for ts in _flat_groups(tensors):
             flat = torch._utils._flatten_dense_tensors(ts)
-            dist.broadcast(flat, src=self.ranks[src_index], group=self.group)
+            dist.broadcast(_counted(flat), src=self.ranks[src_index],
+                           group=self.group)
             for t, f in zip(ts, torch._utils._unflatten_dense_tensors(
                     flat, ts)):
                 t.copy_(f)
@@ -313,7 +325,7 @@ class Mesh:
     def any(self, flag: bool) -> bool:
         """Whether ``flag`` is set on any rank (a host sync)."""
         t = torch.tensor([float(flag)], device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(_counted(t), op=dist.ReduceOp.MAX)
         return bool(t.item())
 
 

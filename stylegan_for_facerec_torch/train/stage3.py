@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -78,6 +79,7 @@ from ..nn.layers import Dropout, _GhostBatchNorm
 from ..parallel.mesh import LocalAxis
 from ..parallel.sharded_head import local_margin_ce, topk_correct
 from ..utils.device import resolve_device
+from ..utils.tracing import count, span
 from . import optim
 
 FROZEN_PREFIXES = ("backbone.body", "backbone.encoder.body")
@@ -198,7 +200,9 @@ class Stage3Trainer:
 
     def init(self, seed: int = 0):
         """Draw the backbone's and the head's weights from ``seed``, reset
-        the optimizer (count 0) and seed ``generator`` with ``seed``."""
+        the optimizer (count 0) and seed ``generator`` with ``seed``. Its
+        host seconds add to the counter ``sgfr.setup.weight_init_s``."""
+        t0 = time.perf_counter()
         gen = torch.Generator().manual_seed(seed)
         init_weights(self.backbone.cpu(), gen)
         self.backbone.to(self.device).train()
@@ -215,6 +219,7 @@ class Stage3Trainer:
             lr=self.cfg.lr, momentum=self.cfg.momentum, nesterov=False)
         self.opt_count = 0
         self.generator.manual_seed(seed)
+        count("sgfr.setup.weight_init_s", time.perf_counter() - t0)
 
     def _class_rows(self, w: torch.Tensor) -> torch.Tensor:
         """This rank's shard of a (num_classes, ...) tensor."""
@@ -295,26 +300,39 @@ class Stage3Trainer:
         and (B,) labels on the trainer's device. ``grad_mask`` (from
         ``freeze_mask``) says which parameters train. Returns the step's
         metrics: loss, top1, top5 as device tensors, and lr, the schedule
-        at ``step``."""
+        at ``step``. Spans (``utils/tracing.py``): ``sgfr.stage3.step``
+        around ``augment`` (with ``augment_crop``), ``forward``,
+        ``backward``, ``grad_sync`` (under a mesh), ``optimizer`` and
+        ``bn_broadcast`` (under a mesh with per-replica BatchNorm)."""
+        with span("sgfr.stage3.step"):
+            return self._train_step(images, labels, step, grad_mask)
+
+    def _train_step(self, images, labels, step, grad_mask):
         for k, p in self.named_parameters():
             p.requires_grad_(True if grad_mask is None else grad_mask[k])
         self.backbone.train()
         if self.cfg.augment_crop is not None:
-            images = device_augment(images, self.generator,
-                                    self.cfg.augment_crop)
+            with span("sgfr.stage3.augment"):
+                images = device_augment(images, self.generator,
+                                        self.cfg.augment_crop)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, top1, top5 = self._loss(images, labels)
-        loss.backward()
+        with span("sgfr.stage3.forward"):
+            loss, top1, top5 = self._loss(images, labels)
+        with span("sgfr.stage3.backward"):
+            loss.backward()
         if self.mesh is not None:
-            self._sync_grads()
-        lr = self.schedule(self.opt_count)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.opt_count += 1
+            with span("sgfr.stage3.grad_sync"):
+                self._sync_grads()
+        with span("sgfr.stage3.optimizer"):
+            lr = self.schedule(self.opt_count)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.opt_count += 1
         if self.mesh is not None and self._per_replica:
-            self.mesh.world.broadcast_(
-                b for m in self._per_replica for b in m.buffers())
+            with span("sgfr.stage3.bn_broadcast"):
+                self.mesh.world.broadcast_(
+                    b for m in self._per_replica for b in m.buffers())
         return {"loss": loss.detach(), "top1": top1.detach(),
                 "top5": top5.detach(), "lr": self.schedule(step)}
 

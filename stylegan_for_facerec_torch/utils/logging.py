@@ -1,9 +1,10 @@
 """Training logs: ``AverageMeter``, ``aggregate_loss_dicts``,
 ``MetricLogger`` (scalars as JSON lines, per-benchmark verification
-results with their ROC curves, images as JPEG), ``render_roc_curve``,
-``profile_trace`` (a ``torch.profiler`` Chrome trace) and ``StepTimer``,
-as ``stylegan_for_facerec_tpu/utils/logging.py`` without its wandb
-backend."""
+results with their ROC curves, images as JPEG), ``render_roc_curve`` and
+``profile_trace`` (a ``torch.profiler`` Chrome trace with the port's
+spans, and their summary), as the JAX package's ``utils/logging.py``
+without its wandb backend and its ``StepTimer`` (the port times its
+layers in ``utils/tracing.py``)."""
 
 from __future__ import annotations
 
@@ -134,42 +135,30 @@ def render_roc_curve(fpr, tpr) -> np.ndarray:
 @contextlib.contextmanager
 def profile_trace(log_dir: str, enabled: bool = True, device: str = "cuda"):
     """Profile the block and write a Chrome trace (``trace_<pid>_<ns>.json``,
-    for Perfetto or chrome://tracing) into ``log_dir``: CPU activity, and
-    the card's kernels when ``device`` is a CUDA device. With
-    ``enabled=False`` it does nothing. Yields the profiler (None when
-    disabled)."""
+    for Perfetto or chrome://tracing) into ``log_dir``: CPU activity, the
+    port's ``sgfr.*`` spans, and the card's kernels when ``device`` is a
+    CUDA device. Beside it, ``spans_<pid>_<ns>.json`` holds
+    ``utils.tracing.summary()`` of the block (the spans are reset as it
+    opens). With ``enabled=False`` it does nothing. Yields the profiler
+    (None when disabled)."""
     if not enabled:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from . import tracing
+
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    tracing.reset()
     with profile(activities=activities) as prof:
         yield prof
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-class StepTimer:
-    """Host wall-clock per step with an EMA, for throughput reporting
-    (end a step with ``torch.cuda.synchronize()`` to time the card)."""
-
-    def __init__(self, beta: float = 0.9):
-        self.beta = beta
-        self.ema = None
-        self._t = None
-
-    def tic(self):
-        self._t = time.perf_counter()
-
-    def toc(self) -> float:
-        dt = time.perf_counter() - self._t
-        self.ema = dt if self.ema is None else \
-            self.beta * self.ema + (1 - self.beta) * dt
-        return dt
+    stem = f"{os.getpid()}_{time.time_ns()}.json"
+    prof.export_chrome_trace(os.path.join(log_dir, "trace_" + stem))
+    with open(os.path.join(log_dir, "spans_" + stem), "w") as f:
+        json.dump(tracing.summary(), f, indent=1)

@@ -63,6 +63,8 @@ JAX_ONLY = {
     "(tools/convert_checkpoint.py: lpips_state_dict)",
     "eval/verify_runner.py::l2_norm_np": "a numpy helper of the JAX "
     "embedder; the port normalises the embeddings on the card",
+    "utils/logging.py::StepTimer": "no reader; the port's timing lives in "
+                                   "utils/tracing.py",
     "tools/tune_stage3.py::scan_time": "times a lax.scan of steps on the "
     "TPU; the port times its steps with CUDA synchronisation",
     "tools/align_faces.py": "out of scope: needs dlib, which does not "

@@ -256,7 +256,8 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with profile_trace(str(log_dir), device="cpu") as prof:
         torch.randn(64, 64) @ torch.randn(64, 64)
     assert prof is not None
-    (name,) = os.listdir(log_dir)
+    name, spans = sorted(os.listdir(log_dir), reverse=True)
+    assert name.startswith("trace_") and spans == "spans" + name[5:]
     with open(log_dir / name) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)

@@ -7,7 +7,6 @@ handoff."""
 
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -21,7 +20,7 @@ from stylegan_for_facerec_torch.data import dataset, packed
 from stylegan_for_facerec_torch.models.psp import PSp, PSpFaceRec
 from stylegan_for_facerec_torch.utils import config
 from stylegan_for_facerec_torch.utils.checkpoint import load_stage2_encoder
-from stylegan_for_facerec_torch.utils.logging import MetricLogger, StepTimer
+from stylegan_for_facerec_torch.utils.logging import MetricLogger
 
 REPO_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "stage3_bupt_ir50.json")
@@ -184,18 +183,10 @@ def test_stage2_encoder_handoff():
         load_stage2_encoder(small, s2.state_dict())
 
 
-def test_metric_logger_benchmark_and_step_timer(tmp_path):
+def test_metric_logger_benchmark(tmp_path):
     with MetricLogger(str(tmp_path)) as logger:
         logger.log_benchmark(12, "rfw_African", 0.875, 1.23, epoch=2)
     line = json.loads((tmp_path / "metrics.jsonl").read_text())
     assert line["rfw_African_Accuracy"] == 0.875
     assert line["rfw_African_Best_Threshold"] == 1.23
     assert line["epoch"] == 2 and line["step"] == 12
-    t = StepTimer(beta=0.5)
-    t.tic()
-    time.sleep(0.01)
-    first = t.toc()
-    t.tic()
-    second = t.toc()
-    assert first >= 0.01 and t.ema == pytest.approx(0.5 * first
-                                                    + 0.5 * second)
